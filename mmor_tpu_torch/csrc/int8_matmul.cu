@@ -1,0 +1,309 @@
+// K2: packed int8 weight matmul, x @ (unpack(w_p) * scale).
+//
+// Replaces mmor_tpu/ops/quantized_matmul.py::int8_matmul_packed
+// (_packed_kernel, the pl.pallas_call at :250).
+//
+// What bounds it on the H100: at decode (M = batch = 8) every weight byte
+// is read once per token for 16 multiply-adds, so the product is bound by
+// device-memory bandwidth; at prefill (M = 8 x 708) it is bound by the int8
+// tensor-core rate.
+//
+// Design: pack_int8_rows stores rows 4r..4r+3 of one output column in one
+// int32 word, and the activations are quantized to int8 rows packed the same
+// way along K. Those words are exactly the B and A operands of
+// mma.sync.m16n8k32.s8 (a thread's A register holds 4 consecutive k of one
+// row, its B register 4 consecutive k of one column), so the TPU's weight
+// layout stays as it is and no unpacking happens at all.
+//  - W8A8 (int8_mxu): a first kernel quantizes the activation rows (one
+//    block per row, the plain version's arithmetic, so the two agree bit for
+//    bit); then int32 accumulation, acc * col_scale * row_scale in f32,
+//    stored in the caller's dtype.
+//    * skinny kernel (M <= 16, decode): one 16-row m-tile; a block of eight
+//      warps covers 32 columns and splits K between its warps, so a 4096
+//      column weight spreads over 128 blocks; operands load straight from
+//      device memory (each weight word is used once), four k-steps of loads
+//      in flight per warp before their products, and the warps' partial
+//      sums meet in shared memory.
+//    * tiled kernel (prefill): 64 x 64 block tiles, a 2 x 2 warp grid of
+//      32 x 32 warp tiles, K staged through shared memory 64 at a time.
+//  - W8A16 (int8_mxu off): a plain FMA kernel over bf16/f32 activations and
+//    int8 weights converted in registers, f32 accumulation, times col_scale.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
+                                       const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// ------------------------------------------------------ activation rows
+// Per-row symmetric int8 activations, the same arithmetic as the plain
+// quantize_rows: row amax in f32, scale = amax / 127 (1 for a zero row), its
+// inverse rounded to x's type, x * inv in x's type, rounded half to even and
+// clipped to +-127. One block per row.
+constexpr int kQuantThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                     float* __restrict__ row_scale, int k) {
+  __shared__ float red[kQuantThreads / 32];
+  const T* xr = x + (size_t)blockIdx.x * k;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < k; i += kQuantThreads)
+    amax = fmaxf(amax, fabsf(to_float(xr[i])));
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float scale = amax > 0.f ? amax / 127.f : 1.f;
+  const float inv = to_float(from_float<T>(1.f / scale));
+  if (threadIdx.x == 0) row_scale[blockIdx.x] = scale;
+  int8_t* qr = xq + (size_t)blockIdx.x * k;
+  for (int i = threadIdx.x; i < k; i += kQuantThreads) {
+    const float v = rintf(to_float(from_float<T>(to_float(xr[i]) * inv)));
+    qr[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
+  }
+}
+
+// ---------------------------------------------------------------- W8A8 skinny
+constexpr int kSkinnyWarps = 8;
+constexpr int kSkinnyN = 32;
+constexpr int kSkinnyUnroll = 4;  // k-steps a warp loads before its products
+
+template <typename OutT>
+__global__ void __launch_bounds__(kSkinnyWarps * 32)
+s8_skinny_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w,
+                 const float* __restrict__ scale, const float* __restrict__ rs,
+                 OutT* __restrict__ out, int m, int kw, int n) {
+  __shared__ int red[kSkinnyWarps][16][kSkinnyN];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int n0 = blockIdx.x * kSkinnyN;
+  const int steps = kw / 8;  // 8 words = 32 k per step
+
+  int acc[kSkinnyN / 8][4] = {};
+  // each warp takes kSkinnyUnroll consecutive steps at a time and issues all
+  // their loads before the products, so enough bytes are in flight
+  for (int s0 = warp * kSkinnyUnroll; s0 < steps; s0 += kSkinnyWarps * kSkinnyUnroll) {
+    uint32_t a[kSkinnyUnroll][4], b[kSkinnyUnroll][kSkinnyN / 8][2];
+#pragma unroll
+    for (int u = 0; u < kSkinnyUnroll; ++u) {
+      const bool live = s0 + u < steps;
+      const int k0 = (s0 + u) * 8;
+      a[u][0] = live && g < m ? xq[(size_t)g * kw + k0 + t4] : 0u;
+      a[u][1] = live && g + 8 < m ? xq[(size_t)(g + 8) * kw + k0 + t4] : 0u;
+      a[u][2] = live && g < m ? xq[(size_t)g * kw + k0 + t4 + 4] : 0u;
+      a[u][3] = live && g + 8 < m ? xq[(size_t)(g + 8) * kw + k0 + t4 + 4] : 0u;
+#pragma unroll
+      for (int nt = 0; nt < kSkinnyN / 8; ++nt) {
+        const int col = n0 + nt * 8 + g;
+        b[u][nt][0] = live && col < n ? w[(size_t)(k0 + t4) * n + col] : 0u;
+        b[u][nt][1] = live && col < n ? w[(size_t)(k0 + t4 + 4) * n + col] : 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSkinnyUnroll; ++u)
+#pragma unroll
+      for (int nt = 0; nt < kSkinnyN / 8; ++nt) mma_s8(acc[nt], a[u], b[u][nt]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < kSkinnyN / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[warp][g + (e >> 1) * 8][nt * 8 + t4 * 2 + (e & 1)] = acc[nt][e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 16 * kSkinnyN; i += kSkinnyWarps * 32) {
+    const int row = i / kSkinnyN, cl = i % kSkinnyN, col = n0 + cl;
+    if (row >= m || col >= n) continue;
+    int sum = 0;
+    for (int wi = 0; wi < kSkinnyWarps; ++wi) sum += red[wi][row][cl];
+    out[(size_t)row * n + col] = from_float<OutT>((float)sum * scale[col] * rs[row]);
+  }
+}
+
+// ----------------------------------------------------------------- W8A8 tiled
+constexpr int kTileM = 64, kTileN = 64, kTileKW = 16;  // KW = K / 4 words
+constexpr int kXStride = kTileKW + 4;   // conflict-free A fragment reads
+constexpr int kWStride = kTileN + 8;    // conflict-free B fragment reads
+
+template <typename OutT>
+__global__ void __launch_bounds__(128)
+s8_tiled_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w,
+                const float* __restrict__ scale, const float* __restrict__ rs,
+                OutT* __restrict__ out, int m, int kw, int n) {
+  __shared__ __align__(16) uint32_t xs[kTileM * kXStride];
+  __shared__ __align__(16) uint32_t ws[kTileKW * kWStride];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wm = warp / 2, wn = warp % 2;
+  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
+  const bool vec_w = (n % 4) == 0;
+
+  int acc[2][4][4] = {};
+  for (int k0 = 0; k0 < kw; k0 += kTileKW) {
+    // stage X (64 rows x 16 words) and W (16 words x 64 cols), 16 bytes a load
+    for (int c = threadIdx.x; c < kTileM * kTileKW / 4; c += 128) {
+      const int r = c / (kTileKW / 4), cw = (c % (kTileKW / 4)) * 4;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (m0 + r < m)
+        val = *reinterpret_cast<const uint4*>(xq + (size_t)(m0 + r) * kw + k0 + cw);
+      *reinterpret_cast<uint4*>(xs + r * kXStride + cw) = val;
+    }
+    for (int c = threadIdx.x; c < kTileKW * kTileN / 4; c += 128) {
+      const int r = c / (kTileN / 4), cc = (c % (kTileN / 4)) * 4;
+      const int col = n0 + cc;
+      const uint32_t* src = w + (size_t)(k0 + r) * n + col;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (vec_w && col + 3 < n) {
+        val = *reinterpret_cast<const uint4*>(src);
+      } else {
+        val.x = col < n ? src[0] : 0u;
+        val.y = col + 1 < n ? src[1] : 0u;
+        val.z = col + 2 < n ? src[2] : 0u;
+        val.w = col + 3 < n ? src[3] : 0u;
+      }
+      *reinterpret_cast<uint4*>(ws + r * kWStride + cc) = val;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kTileKW / 8; ++ks) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t* xr = xs + (wm * 32 + mt * 16 + g) * kXStride + ks * 8 + t4;
+        a[mt][0] = xr[0];
+        a[mt][1] = xr[8 * kXStride];
+        a[mt][2] = xr[4];
+        a[mt][3] = xr[8 * kXStride + 4];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t* wr = ws + (ks * 8 + t4) * kWStride + wn * 32 + nt * 8 + g;
+        b[nt][0] = wr[0];
+        b[nt][1] = wr[4 * kWStride];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * 32 + mt * 16 + g + (e >> 1) * 8;
+        const int col = n0 + wn * 32 + nt * 8 + t4 * 2 + (e & 1);
+        if (row < m && col < n)
+          out[(size_t)row * n + col] =
+              from_float<OutT>((float)acc[mt][nt][e] * scale[col] * rs[row]);
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------- W8A16
+template <typename T>
+__global__ void __launch_bounds__(128)
+w8a16_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
+             const float* __restrict__ scale, T* __restrict__ out, int m,
+             int kw, int n) {
+  const int col = blockIdx.x * 128 + threadIdx.x;
+  const int row = blockIdx.y;
+  if (col >= n) return;
+  const T* xr = x + (size_t)row * kw * 4;
+  float acc = 0.f;
+  for (int r = 0; r < kw; ++r) {
+    const uint32_t word = w[(size_t)r * n + col];
+#pragma unroll
+    for (int byte = 0; byte < 4; ++byte)
+      acc += to_float(xr[4 * r + byte]) *
+             (float)(int8_t)((word >> (8 * byte)) & 0xffu);
+  }
+  out[(size_t)row * n + col] = from_float<T>(acc * scale[col]);
+}
+
+template <typename T>
+cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
+                        const float* scale, void* out, int m, int k, int n,
+                        cudaStream_t s) {
+  float* rs = static_cast<float*>(row_scale);
+  quantize_rows_kernel<T><<<m, kQuantThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<int8_t*>(xq), rs, k);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int kw = k / 4;
+  const uint32_t* x32 = static_cast<const uint32_t*>(xq);
+  const uint32_t* w32 = static_cast<const uint32_t*>(w);
+  T* o = static_cast<T*>(out);
+  if (m <= 16) {
+    s8_skinny_kernel<T><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
+        x32, w32, scale, rs, o, m, kw, n);
+  } else {
+    dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
+    s8_tiled_kernel<T><<<grid, 128, 0, s>>>(x32, w32, scale, rs, o, m, kw, n);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// W8A8: x (M, K) bf16 (x_bf16 = 1) or f32; xq (M, K) int8 and row_scale
+// (M,) f32 are scratch the activation quantization fills; w (K/4, N) int32
+// packed by pack_int8_rows, scale (N,) f32; out (M, N) in x's dtype. K must be
+// a multiple of 64.
+extern "C" int mmor_int8_matmul_w8a8(const void* x, void* xq, void* row_scale,
+                                     const void* w, const void* scale, void* out,
+                                     int m, int k, int n, int x_bf16,
+                                     void* stream) {
+  if (k % 64 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  return x_bf16 ? (int)launch_w8a8<__nv_bfloat16>(x, xq, row_scale, w, sc, out, m, k, n, s)
+                : (int)launch_w8a8<float>(x, xq, row_scale, w, sc, out, m, k, n, s);
+}
+
+// W8A16: x (M, K) bf16 (x_bf16 = 1) or f32, w and scale as above, out (M, N)
+// in x's dtype. K must be a multiple of 4.
+extern "C" int mmor_int8_matmul_w8a16(const void* x, const void* w,
+                                      const void* scale, void* out, int m,
+                                      int k, int n, int x_bf16, void* stream) {
+  if (k % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((n + 127) / 128, m);
+  const uint32_t* w32 = static_cast<const uint32_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  if (x_bf16)
+    w8a16_kernel<__nv_bfloat16><<<grid, 128, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), w32, sc,
+        static_cast<__nv_bfloat16*>(out), m, k / 4, n);
+  else
+    w8a16_kernel<float><<<grid, 128, 0, s>>>(static_cast<const float*>(x), w32,
+                                             sc, static_cast<float*>(out), m,
+                                             k / 4, n);
+  return (int)cudaGetLastError();
+}

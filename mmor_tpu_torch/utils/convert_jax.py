@@ -1,0 +1,101 @@
+"""Convert a JAX ``MM2SG`` parameter tree into the port's state dict.
+
+The input is the JAX package's tree with numpy leaves (for example
+``jax.tree.map(np.asarray, params)``), with or without the outer
+``{"params": ...}``; this module imports no JAX. Layout rules:
+
+- Dense kernels (in, out) -> ``weight`` (out, in);
+- DenseGeneral q/k/v kernels (D, H, hd) -> (H*hd, D), biases (H, hd) ->
+  (H*hd,); the out kernel (H, hd, D) -> (D, H*hd);
+- Conv kernels HWIO -> OIHW; the PTv3 depthwise conv (3, 1, C) -> (C, 1, 3);
+- Embed ``embedding`` -> ``weight``;
+- the scanned ``blocks`` of the vision tower and the language model lose
+  their leading layer axis to per-layer modules ``blocks.<i>``;
+- the packed int8 leaves (``w_p``, ``scale``) pass through unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_SCANNED = ("vision_tower/blocks", "language_model/blocks")
+_DENSE_GENERAL_IN = ("query", "key", "value")
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            out.update(_flatten(value, path))
+        else:
+            out[path] = np.asarray(value)
+    return out
+
+
+def _torch_key(path: str) -> str:
+    parts = path.split("/")
+    top = parts[0]
+    if top == "point_encoder" and parts[1].startswith("down_"):
+        parts.insert(1, "down")
+    elif top == "point_encoder" and parts[1].startswith("stage"):
+        parts.insert(1, "blocks")
+    elif top == "image_pooler" and parts[1].startswith("layer_"):
+        parts[1:2] = ["layers", parts[1][len("layer_"):]]
+    return ".".join(parts)
+
+
+def _convert_leaf(module: str, leaf: str, x: np.ndarray) -> tuple[str, np.ndarray]:
+    if leaf == "embedding":
+        return "weight", x
+    if leaf == "kernel":
+        if x.ndim == 4:  # conv HWIO -> OIHW
+            return "weight", x.transpose(3, 2, 0, 1)
+        if x.ndim == 3 and module == "cpe":  # depthwise conv1d (K, 1, C)
+            return "weight", x.transpose(2, 1, 0)
+        if x.ndim == 3 and module in _DENSE_GENERAL_IN:  # (D, H, hd)
+            return "weight", x.reshape(x.shape[0], -1).T
+        if x.ndim == 3 and module == "out":  # (H, hd, D)
+            return "weight", x.reshape(-1, x.shape[-1]).T
+        return "weight", x.T
+    if leaf == "bias" and module in _DENSE_GENERAL_IN:
+        return "bias", x.reshape(-1)
+    return leaf, x
+
+
+def convert_mm2sg(params: dict) -> dict[str, torch.Tensor]:
+    """JAX MM2SG tree -> state dict for ``mmor_tpu_torch.models.mm2sg.MM2SG``
+    (or, given a ``language_model`` subtree wrapped as
+    ``{"language_model": ...}``, the keys of that submodule)."""
+    tree = params.get("params", params)
+    out: dict[str, torch.Tensor] = {}
+    for path, x in _flatten(tree).items():
+        scanned = next((p for p in _SCANNED if path.startswith(p + "/")), None)
+        if scanned:
+            rest = path[len(scanned) + 1:]
+            per_layer = [(f"{scanned}/{i}/{rest}", x[i]) for i in range(x.shape[0])]
+        else:
+            per_layer = [(path, x)]
+        for p, arr in per_layer:
+            parts = p.split("/")
+            module = parts[-2] if len(parts) > 1 else ""
+            leaf, arr = _convert_leaf(module, parts[-1], arr)
+            key = _torch_key("/".join(parts[:-1] + [leaf]))
+            out[key] = _to_torch(arr)
+    return out
+
+
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch twin in numpy
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))  # a writable copy
+
+
+def convert_llama(lm_params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LlamaModel`` tree (float or packed int8) -> ``LlamaModel`` state
+    dict."""
+    inner = lm_params.get("params", lm_params)
+    prefix = "language_model."
+    full = convert_mm2sg({"language_model": inner})
+    return {k[len(prefix):]: v for k, v in full.items()}

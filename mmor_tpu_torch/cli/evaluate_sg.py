@@ -8,10 +8,11 @@ Modes:
 
 Usage:
   python -m mmor_tpu_torch.cli.evaluate_sg --synthetic 2 --preset 7b \
-      --quantize int8 [--batch_size 8] [--device cuda]
+      --quantize int4 [--batch_size 8] [--device cuda]
 
 With --synthetic N a synthetic dataset is fabricated; without --checkpoint
-the weights are random from a fixed seed.
+the weights are random from a fixed seed. The run needs a CUDA device unless
+``--device cpu`` asks for the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -20,9 +21,8 @@ import argparse
 import json
 from pathlib import Path
 
-import torch
-
 from mmor_tpu_torch.cli.common import build_predictor, load_tokenizer, make_dataset
+from mmor_tpu_torch.config import require_device
 
 
 def summarize(report: dict) -> dict:
@@ -54,11 +54,19 @@ def main(argv=None) -> dict:
     p.add_argument("--quantize", nargs="?", const="int8", default=None,
                    choices=["int8", "int4"],
                    help="'int8' (or the bare flag): packed int8 weights + int8 "
-                        "KV cache, per-op decode; 'int4' is not ported yet")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+                        "KV cache, per-op decode; 'int4': fused int4 weights "
+                        "(K3) + int4 KV cache, decode through the megakernel "
+                        "(K5); where the model's K-chunk is not a multiple of "
+                        "256 (the tiny preset, which runs only with --device "
+                        "cpu) int4 weights with an int8 KV cache and per-op "
+                        "decode")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (the default; raises without a card) or 'cpu', "
+                        "which runs the kernels' plain PyTorch versions")
     p.add_argument("--verbose", action="store_true",
                    help="print the reference-style per-take tables")
     args = p.parse_args(argv)
+    require_device(args.device)
 
     dataset = make_dataset(args)
     tokenizer = load_tokenizer(args.tokenizer)
@@ -88,7 +96,7 @@ def main(argv=None) -> dict:
 
     report, raw = run(args.checkpoint)
     if args.verbose:
-        from mmor_tpu.eval.report_format import format_sg_report
+        from mmor_tpu_torch.eval.report_format import format_sg_report
 
         print(format_sg_report(report))
     summary = summarize(report)

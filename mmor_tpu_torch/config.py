@@ -13,16 +13,19 @@ from dataclasses import dataclass
 
 import torch
 
-from mmor_tpu.sg.prompts import IMAGE_TOKEN_INDEX
+from mmor_tpu_torch.sg.prompts import IMAGE_TOKEN_INDEX
 
 
 @dataclass(frozen=True)
 class LlamaConfig:
     """Llama-family decoder (the MM2SG language model, LLaVA-v1.5-7B base).
 
-    Of the JAX config's serving fields the port implements ``weight_bits=8``,
-    ``kv_bits=8`` and ``mega_decode=False``; the int4 megakernel path is a
-    later slice (ROADMAP)."""
+    Serving configurations the port implements: per-op decode with int8 or
+    int4 weights (``weight_bits`` 8 or 4, the latter with per-(K-group,
+    channel) scales, ``weight_group`` rows a group) and an int8 KV cache;
+    and the decode megakernel (``mega_decode``) with int4 weights and an
+    int4 KV cache. The megakernel's int8-weight and int8-KV variants are
+    not ported (ROADMAP Queue 2, K5)."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -48,10 +51,17 @@ class LlamaConfig:
     tp_segments: int = 1
 
     def __post_init__(self):
-        if self.weight_bits != 8 or self.kv_bits != 8 or self.mega_decode:
+        if self.weight_bits not in (4, 8) or self.kv_bits not in (4, 8):
+            raise ValueError(f"weight_bits {self.weight_bits} / kv_bits "
+                             f"{self.kv_bits}: each must be 4 or 8")
+        if self.mega_decode and (self.weight_bits, self.kv_bits) != (4, 4):
             raise NotImplementedError(
-                "int4 weights / int4 KV / the decode megakernel are not ported "
-                "yet (ROADMAP Queue 1, slice 6)")
+                "the decode megakernel is ported for int4 weights and an int4 "
+                "KV cache only; its weight_bits=8 / kv_bits=8 variants are "
+                "open (ROADMAP Queue 2, K5)")
+        if self.kv_bits == 4 and not self.mega_decode:
+            raise ValueError("an int4 KV cache is served only by the decode "
+                             "megakernel (mega_decode=True)")
         if self.tp_segments != 1:
             raise NotImplementedError("tensor-parallel layouts come with slice 12")
 
@@ -72,6 +82,24 @@ class LlamaConfig:
         )
         base.update(kw)
         return cls(**base)
+
+
+def pick_ck(cfg: LlamaConfig) -> int:
+    """The decode megakernel's K-chunk width for ``cfg``, which is also the
+    int4 scale group the weights are quantized with
+    (``mmor_tpu/ops/mega_decode.py::MegaGeometry.pick_ck``): the widest of
+    1024, 512, ..., 16 that holds whole heads, divides the model and padded
+    ffn widths and the head count in heads per chunk, and tiles the q width
+    in pairs."""
+    dh = cfg.head_dim
+    ffn = cfg.ffn_dim + cfg.ffn_pad
+    qw = cfg.n_heads * dh
+    for cand in (1024, 512, 256, 128, 64, 32, 16):
+        if (cand % dh == 0 and cfg.dim % cand == 0 and ffn % cand == 0
+                and cfg.n_heads % max(1, cand // dh) == 0
+                and qw % (2 * cand) == 0):
+            return cand
+    raise ValueError(f"no legal K-chunk for dim={cfg.dim} ffn={ffn} dh={dh}")
 
 
 @dataclass(frozen=True)
@@ -239,14 +267,28 @@ def preset(name: str) -> MM2SGConfig:
 AZURE_SIZE, SCREEN_SIZE = (1536, 2048), (1080, 1920)
 
 
+def require_device(device: torch.device | str) -> torch.device:
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: a CUDA device with no card present raises here, at entry,
+    rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mmor_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' (--device cpu) to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    return device
+
+
 def example_batch(cfg: MM2SGConfig, batch: int, prompt_len: int, seed: int,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   raw_views: bool = False) -> dict[str, torch.Tensor]:
     """Seeded synthetic batch (``__graft_entry__._example_batch``'s twin).
 
     With ``raw_views`` the images are a tuple of per-slot uint8 frames at
     their native camera sizes (up to five azure slots, then screens); otherwise
     preprocessed (B, V, S, S, 3) pixels in the vision tower's dtype."""
+    device = require_device(device)
     gen = torch.Generator().manual_seed(seed)
     v = cfg.pooler.max_views
     size = cfg.vision.image_size

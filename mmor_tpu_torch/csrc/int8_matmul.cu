@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+
 namespace {
 
 __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
@@ -42,47 +44,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// ------------------------------------------------------ activation rows
-// Per-row symmetric int8 activations, the same arithmetic as the plain
-// quantize_rows: row amax in f32, scale = amax / 127 (1 for a zero row), its
-// inverse rounded to x's type, x * inv in x's type, rounded half to even and
-// clipped to +-127. One block per row.
-constexpr int kQuantThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kQuantThreads)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ row_scale, int k) {
-  __shared__ float red[kQuantThreads / 32];
-  const T* xr = x + (size_t)blockIdx.x * k;
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < k; i += kQuantThreads)
-    amax = fmaxf(amax, fabsf(to_float(xr[i])));
-  for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
-  __syncthreads();
-  amax = red[0];
-#pragma unroll
-  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float scale = amax > 0.f ? amax / 127.f : 1.f;
-  const float inv = to_float(from_float<T>(1.f / scale));
-  if (threadIdx.x == 0) row_scale[blockIdx.x] = scale;
-  int8_t* qr = xq + (size_t)blockIdx.x * k;
-  for (int i = threadIdx.x; i < k; i += kQuantThreads) {
-    const float v = rintf(to_float(from_float<T>(to_float(xr[i]) * inv)));
-    qr[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
-  }
 }
 
 // ---------------------------------------------------------------- W8A8 skinny

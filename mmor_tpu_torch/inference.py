@@ -1,12 +1,14 @@
 """MM2SG inference engine: ORDataset items -> prompts -> batched generate -> F1.
 
-Counterpart of ``mmor_tpu/inference.py`` for the per-op serving path: the
-same camera-slot logic, metadata prompts, left padding to a prompt bucket,
-16-granular cache capacities, recycled cache buffers per (batch, capacity),
-and the reference's report. Raw uint8 frames go to the device at their
-native sizes and are preprocessed there; point clouds go through PTv3.
-The host-side pieces (prompts, PCD parsing, the evaluator) are the JAX
-package's own, which import no JAX.
+Counterpart of ``mmor_tpu/inference.py``: the same camera-slot logic,
+metadata prompts, left padding to a prompt bucket, cache capacities (16-
+granular per-op, 256-granular for the megakernel's int4 cache), ragged
+megakernel batches padded to a multiple of 8 with repeated first rows,
+recycled cache buffers per (batch, capacity), and the reference's report.
+Raw uint8 frames go to the device at their native sizes and are
+preprocessed there; point clouds go through PTv3. The host-side pieces
+(prompts, PCD parsing, the evaluator) are the port's copies in ``sg``,
+``data`` and ``eval``.
 """
 
 from __future__ import annotations
@@ -19,11 +21,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from mmor_tpu.data import preprocessing as pp
-from mmor_tpu.data.configurations import TRACKER_OBJECT_MAP
-from mmor_tpu.eval.sg_eval import SceneGraphEvaluator
-from mmor_tpu.sg.converters import change_log_to_memory_str, sg_history_to_change_log
-from mmor_tpu.sg.prompts import (
+from mmor_tpu_torch.data import preprocessing as pp
+from mmor_tpu_torch.data.configurations import TRACKER_OBJECT_MAP
+from mmor_tpu_torch.eval.sg_eval import SceneGraphEvaluator
+from mmor_tpu_torch.sg.converters import change_log_to_memory_str, sg_history_to_change_log
+from mmor_tpu_torch.sg.prompts import (
     IMAGE_TOKEN_INDEX,
     build_sg_prompt,
     format_robot_metadata,
@@ -31,9 +33,10 @@ from mmor_tpu.sg.prompts import (
     left_pad_batch,
     tokenize_with_image_token,
 )
-from mmor_tpu_torch.config import MM2SGConfig
+from mmor_tpu_torch.config import MM2SGConfig, require_device
 from mmor_tpu_torch.models.llama import make_decode_step
 from mmor_tpu_torch.models.mm2sg import MM2SG, generate_stepwise, make_prefill
+from mmor_tpu_torch.ops.mega_decode import MegaServer
 
 _BLACK = np.zeros((8, 8, 3), np.uint8)  # an absent view; any size will do
 
@@ -62,7 +65,7 @@ class SceneGraphPredictor:
     cfg: MM2SGConfig
     model: MM2SG
     tokenizer: object
-    device: torch.device = torch.device("cpu")
+    device: torch.device | str = "cuda"  # "cpu" runs the plain versions
     cameras_mmor: tuple[int, ...] = (1, 4, 5, 2, 3)
     cameras_4dor: tuple[int, ...] = (2, 1, 3, 5)
     temporality: str | None = None  # None | 'PRED'
@@ -70,16 +73,38 @@ class SceneGraphPredictor:
     take_to_history: dict = field(default_factory=lambda: defaultdict(list))
 
     def __post_init__(self):
+        self.device = require_device(self.device)
         self._prefills: dict = {}
         self._buffers: dict = {}
-        self._step = make_decode_step(self.model.language_model)
+        if self.cfg.llama.mega_decode:  # built once: weights, head, step buckets
+            self._step = MegaServer(self.cfg.llama, self.model.language_model)
+        else:
+            self._step = make_decode_step(self.model.language_model)
 
     def _cache_len_for(self, prompt_len: int) -> int:
         need = (prompt_len + self.cfg.num_multimodal_tokens - 1
                 + self.cfg.max_new_tokens)
-        return -(-need // 16) * 16  # 16-granular capacity
+        # 256-granular capacity for the int4 megakernel cache: a constraint of
+        # the TPU kernel's T-halved layout, kept so capacities match the JAX
+        # package's; 16-granular otherwise
+        granule = 256 if self.cfg.llama.mega_decode else 16
+        return -(-need // granule) * granule
 
     def _generate(self, batch) -> np.ndarray:
+        b = batch["input_ids"].shape[0]
+        pad = (-b) % 8 if self.cfg.llama.mega_decode else 0
+        if pad:
+            # megakernel batches are multiples of 8 (the TPU kernel's row
+            # groups, kept to match the JAX package's buckets): repeat the
+            # first row and slice the outputs back
+            def grow(a):
+                if isinstance(a, tuple):
+                    return tuple(grow(x) for x in a)
+                if isinstance(a, torch.Tensor) and a.ndim >= 1 and a.shape[0] == b:
+                    return torch.cat([a, a[:1].expand(pad, *a.shape[1:])])
+                return a
+
+            batch = {k: grow(v) for k, v in batch.items()}
         cache_len = self._cache_len_for(batch["input_ids"].shape[1])
         key = (batch["input_ids"].shape[0], cache_len)
         if key not in self._prefills:
@@ -90,8 +115,9 @@ class SceneGraphPredictor:
             eos_token_id=self.tokenizer.eos_token_id,
             prefill_fn=self._prefills[key], step_fn=self._step,
             cache_buffers=self._buffers.pop(key, None))
-        self._buffers[key] = bufs
-        return tokens
+        if bufs is not None:
+            self._buffers[key] = bufs
+        return tokens[:b]
 
     # ---------------------------------------------------------------- #
     # batch assembly

@@ -1,20 +1,25 @@
 """Llama-family decoder: RMSNorm + RoPE + SwiGLU, capacity KV cache.
 
-Counterpart of ``mmor_tpu/models/llama.py`` for ``weight_bits=8``,
-``kv_bits=8`` and ``mega_decode=False``:
+Counterpart of ``mmor_tpu/models/llama.py``:
 
 - prefill runs K1 flash attention (causal + left-padding segments) and, given
   capacity cache buffers, writes each layer's keys/values into them in place;
-- decode is one position per step against the cache stacks: the new column
-  is written at the batch-uniform ``write_pos`` while RoPE uses each row's
-  own ``tok_pos`` (left padding makes the two differ); with ``kv_quant`` the
-  attention is K4 reading its layer of the int8 stack in place;
-- with ``weight_quant`` every projection and the lm_head are K2 packed int8
-  matmuls (``QuantDense``).
+- per-op decode is one position per step against the cache stacks: the new
+  column is written at the batch-uniform ``write_pos`` while RoPE uses each
+  row's own ``tok_pos`` (left padding makes the two differ); with
+  ``kv_quant`` the attention is K4 reading its layer of the int8 stack in
+  place;
+- with ``weight_quant`` every projection is a packed matmul (``QuantDense``):
+  K2 for int8 weights, K3 for int4 weights with per-(K-group, channel)
+  scales; the lm_head is int8 (K2) either way;
+- under ``mega_decode`` (int4 weights, int4 KV) the prefill writes the int4
+  cache and decode runs through ``ops/mega_decode.py`` (K5).
 
 The JAX scan over blocks is a Python loop over per-layer modules here.
-The int8 cache is (L, B, H, T, D) int8 with (L, B, H, T) bf16 scales — the
-port's Hopper layout (``ops/attention.decode_attention_packed_stack``).
+The int8 cache is (L, B, H, T, D) int8 with (L, B, H, T) bf16 scales, the
+int4 cache (L, B, H, T, D/2) uint8 of biased nibble pairs with the same
+scales — the port's Hopper layouts (``ops/attention.decode_attention_packed_stack``,
+``ops/mega_decode.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from mmor_tpu_torch.config import LlamaConfig
 from mmor_tpu_torch.models.common import Dense
 from mmor_tpu_torch.ops import attention as attn_ops
+from mmor_tpu_torch.ops import mega_decode as mega_ops
 from mmor_tpu_torch.ops import quantized_matmul as qmm
 
 KVCache = dict[str, Any]
@@ -46,21 +52,34 @@ def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class QuantDense(nn.Module):
-    """Dense with int8 weights packed 4 per int32 along K and per-channel
-    scales, served by K2. Buffers: ``w_p`` int32 (in/4, out), ``scale``
-    f32 (out,); fill them with ``quantize_llama_params``."""
+    """Dense with packed quantized weights: int8 packed 4 per int32 along K
+    with per-channel scales, served by K2 (``bits=8``), or int4 packed 8 per
+    int32 with per-(K-``group``, channel) scales, served by K3 (``bits=4``).
+    Buffers: ``w_p`` int32 (in/4 or in/8, out), ``scale`` f32 (out,) or
+    (in/group, out); fill them with ``quantize_llama_params``."""
 
-    def __init__(self, in_features: int, features: int, *, int8_mxu: bool = True):
+    def __init__(self, in_features: int, features: int, *, int8_mxu: bool = True,
+                 bits: int = 8, group: int = 1024):
         super().__init__()
-        self.int8_mxu = int8_mxu
-        self.register_buffer("w_p", torch.zeros(in_features // 4, features,
-                                                dtype=torch.int32))
-        self.register_buffer("scale", torch.ones(features, dtype=torch.float32))
+        self.int8_mxu, self.bits, self.group = int8_mxu, bits, group
+        if bits == 4:
+            self.register_buffer("w_p", torch.zeros(in_features // 8, features,
+                                                    dtype=torch.int32))
+            self.register_buffer("scale", torch.ones(in_features // group, features,
+                                                     dtype=torch.float32))
+        else:
+            self.register_buffer("w_p", torch.zeros(in_features // 4, features,
+                                                    dtype=torch.int32))
+            self.register_buffer("scale", torch.ones(features, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1])
-        out = qmm.int8_matmul_packed(flat, self.w_p, self.scale,
-                                     int8_mxu=self.int8_mxu)
+        if self.bits == 4:
+            out = qmm.int4_matmul_packed(flat, self.w_p, self.scale, group=self.group,
+                                         int8_mxu=self.int8_mxu)
+        else:
+            out = qmm.int8_matmul_packed(flat, self.w_p, self.scale,
+                                         int8_mxu=self.int8_mxu)
         return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -116,7 +135,8 @@ class LlamaBlock(nn.Module):
         ffn = cfg.ffn_dim + cfg.ffn_pad
         if cfg.weight_quant:
             def dense(fin, fout):
-                return QuantDense(fin, fout, int8_mxu=cfg.quant_int8_mxu)
+                return QuantDense(fin, fout, int8_mxu=cfg.quant_int8_mxu,
+                                  bits=cfg.weight_bits, group=cfg.weight_group)
         else:
             def dense(fin, fout):
                 return Dense(fin, fout, bias=False, dtype=cfg.dtype,
@@ -163,7 +183,12 @@ class LlamaBlock(nn.Module):
             attn = attn_ops.flash_attention(q, k, v, causal=True,
                                             segment_ids=segment_ids)
             if caches is not None:  # fill this layer's slots [0, seq) in place
-                if cfg.kv_quant:
+                if cfg.kv_quant and cfg.kv_bits == 4:
+                    for name, t in (("k", k), ("v", v)):
+                        u, s = mega_ops.quantize_kv_int4(t)
+                        caches[name][layer_idx, :, :, :seq] = mega_ops.pack_kv_int4(u)
+                        caches[name + "_s"][layer_idx, :, :, :seq] = s
+                elif cfg.kv_quant:
                     k_q, k_s = quantize_kv(k)
                     v_q, v_s = quantize_kv(v)
                     caches["k"][layer_idx, :, :, :seq] = k_q
@@ -173,6 +198,9 @@ class LlamaBlock(nn.Module):
                 else:
                     caches["k"][layer_idx, :, :, :seq] = k
                     caches["v"][layer_idx, :, :, :seq] = v
+        elif cfg.mega_decode:
+            raise ValueError("mega_decode serves decode through "
+                             "ops/mega_decode.make_mega_decode_step")
         elif cfg.kv_quant:  # decode against the int8 stacks (K4)
             k_q, k_s = quantize_kv(k)  # (B, H, 1, D), (B, H, 1)
             v_q, v_s = quantize_kv(v)
@@ -255,9 +283,17 @@ class LlamaModel(nn.Module):
 def alloc_kv_buffers(cfg: LlamaConfig, batch: int, max_len: int,
                      device) -> KVCache:
     """Capacity cache stacks the prefill fills in place: int8 (L, B, H, T, D)
-    keys/values with bf16 (L, B, H, T) scales under ``kv_quant``, else
-    ``cfg.dtype`` stacks."""
+    keys/values with bf16 (L, B, H, T) scales under ``kv_quant``, or with
+    ``kv_bits=4`` uint8 (L, B, H, T, D/2) nibble pairs with the same scales;
+    else ``cfg.dtype`` stacks."""
     shape = (cfg.n_layers, batch, cfg.n_heads, max_len, cfg.head_dim)
+    if cfg.kv_quant and cfg.kv_bits == 4:
+        shape = shape[:-1] + (cfg.head_dim // 2,)
+        return dict(
+            k=torch.zeros(shape, dtype=torch.uint8, device=device),
+            k_s=torch.ones(shape[:-1], dtype=torch.bfloat16, device=device),
+            v=torch.zeros(shape, dtype=torch.uint8, device=device),
+            v_s=torch.ones(shape[:-1], dtype=torch.bfloat16, device=device))
     if cfg.kv_quant:
         sshape = shape[:-1]
         return dict(
@@ -346,15 +382,17 @@ def fuse_llama_params(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
 
 
 def quantize_llama_params(state: dict[str, torch.Tensor], ffn_pad: int = 0,
-                          bits: int = 8) -> dict[str, torch.Tensor]:
-    """Float ``LlamaModel`` state dict -> packed int8 state dict for
-    ``weight_quant=True``: every block projection and the lm_head become
-    ``w_p`` (in/4, out) int32 + ``scale`` (out,) f32, quantized per output
-    channel; ``ffn_pad`` zero channels are appended to gate/up outputs and
-    the down input first (exact: silu(0) * 0 = 0). Embeddings and norms
-    stay as they are."""
-    if bits != 8:
-        raise NotImplementedError("int4 weights come with ROADMAP Queue 1, slice 6")
+                          bits: int = 8, group: int = 1024) -> dict[str, torch.Tensor]:
+    """Float ``LlamaModel`` state dict -> packed state dict for
+    ``weight_quant=True`` (``llama.py:673-731``): every block projection
+    becomes ``w_p`` (in/4, out) int32 + ``scale`` (out,) f32 quantized per
+    output channel, or with ``bits=4`` ``w_p`` (in/8, out) of biased nibbles
+    + ``scale`` (in/group, out) quantized per (K-``group``, channel); the
+    lm_head is int8 either way. ``ffn_pad`` zero channels are appended to
+    gate/up outputs (fused: ``[gate | pad | up | pad]``) and the down input
+    first (exact: silu(0) * 0 = 0). Embeddings and norms stay as they are."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}: 8 or 4")
     out = {}
     for key, value in state.items():
         parts = key.split(".")
@@ -371,8 +409,12 @@ def quantize_llama_params(state: dict[str, torch.Tensor], ffn_pad: int = 0,
             kernel = F.pad(kernel.reshape(d, 2, f2 // 2), (0, ffn_pad)).reshape(d, -1)
         elif ffn_pad and name == "down_proj":
             kernel = F.pad(kernel, (0, 0, 0, ffn_pad))
-        w_q, scale = qmm.quantize_weights(kernel)
         prefix = key[: -len("weight")]
-        out[prefix + "w_p"] = qmm.pack_int8_rows(w_q)
+        if bits == 4 and is_proj:
+            w_q, scale = qmm.quantize_weights_int4(kernel, group)
+            out[prefix + "w_p"] = qmm.pack_int4_rows(w_q, block=group)
+        else:
+            w_q, scale = qmm.quantize_weights(kernel)
+            out[prefix + "w_p"] = qmm.pack_int8_rows(w_q)
         out[prefix + "scale"] = scale
     return out

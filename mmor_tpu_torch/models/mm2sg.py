@@ -1,6 +1,7 @@
 """MM2SG: multimodal scene-graph generator (LLaVA-style).
 
-Counterpart of ``mmor_tpu/models/mm2sg.py`` for the per-op serving path:
+Counterpart of ``mmor_tpu/models/mm2sg.py`` for serialized serving, per-op
+or through the decode megakernel:
 
 - all views are CLIP-encoded in one (B*V) call;
 - the BERT pooler fuses the views and appends pc/audio/segmask tokens, so
@@ -8,8 +9,9 @@ Counterpart of ``mmor_tpu/models/mm2sg.py`` for the per-op serving path:
 - each prompt carries one ``IMAGE_TOKEN_INDEX`` sentinel, replaced by the
   multimodal tokens: the spliced length is always T + M - 1;
 - ``make_prefill`` fills preallocated capacity cache buffers in place and
-  ``generate_stepwise`` decodes greedily, handing the buffers back for the
-  next batch of the same shape.
+  ``generate_stepwise`` decodes greedily (per-op steps, or K5 steps under
+  ``mega_decode``), handing the buffers back for the next batch of the same
+  shape.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmor_tpu.sg.prompts import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from mmor_tpu_torch.sg.prompts import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from mmor_tpu_torch.config import MM2SGConfig
 from mmor_tpu_torch.models.clip_vit import ClipVisionTower
 from mmor_tpu_torch.models.llama import (
@@ -30,6 +32,7 @@ from mmor_tpu_torch.models.llama import (
 from mmor_tpu_torch.models.pooler import ImagePooler, MMProjector, SegmaskEncoder
 from mmor_tpu_torch.models.ptv3 import PointTransformerV3
 from mmor_tpu_torch.ops.image_preproc import preprocess_views
+from mmor_tpu_torch.ops.mega_decode import MegaServer, greedy_decode_hostloop_mega
 
 
 def splice_multimodal(token_embeds, sentinel_pos, mm_embeds, attention_mask,
@@ -138,8 +141,9 @@ class MM2SG(nn.Module):
 
 
 def alloc_cache_buffers(cfg: MM2SGConfig, batch: int, max_cache_len: int, device):
-    """Capacity KV stacks for ``make_prefill`` to fill in place (int8 + bf16
-    scales with ``kv_quant``, else ``cfg.llama.dtype``)."""
+    """Capacity KV stacks for ``make_prefill`` to fill in place (int8, or
+    int4 nibble pairs under ``kv_bits=4``, + bf16 scales with ``kv_quant``,
+    else ``cfg.llama.dtype``)."""
     return alloc_kv_buffers(cfg.llama, batch, max_cache_len, device)
 
 
@@ -186,20 +190,33 @@ def generate_stepwise(model: MM2SG, batch: dict, *, max_cache_len: int,
                       max_new_tokens: int, eos_token_id: int, prefill_fn=None,
                       step_fn=None, cache_buffers=None):
     """Greedy generation: prefill into capacity buffers, then host-driven
-    decode steps. Returns ((B, max_new_tokens) int32 numpy tokens, the
-    cache buffers to pass as ``cache_buffers`` for the next batch of the
-    same shape)."""
+    decode steps: per-op steps (``step_fn`` from ``make_decode_step``), or
+    under ``mega_decode`` one K5 step per token (``step_fn`` a
+    ``MegaServer``, built here when not given). Returns ((B, max_new_tokens)
+    int32 numpy tokens, the cache buffers to pass as ``cache_buffers`` for the
+    next batch of the same shape, or None when EOS compaction shrank the
+    megakernel cache's batch axis)."""
+    lcfg = model.cfg.llama
+    if lcfg.mega_decode and step_fn is not None and not isinstance(step_fn, MegaServer):
+        raise TypeError("under mega_decode, step_fn must be a MegaServer, got "
+                        f"{type(step_fn).__name__}")
     if prefill_fn is None:
         prefill_fn = make_prefill(model, max_cache_len=max_cache_len)
-    if step_fn is None:
-        step_fn = make_decode_step(model.language_model)
     if cache_buffers is None:
         cache_buffers = alloc_cache_buffers(
             model.cfg, batch["input_ids"].shape[0], max_cache_len,
             batch["input_ids"].device)
     logits, cache = prefill_fn(batch, cache_buffers)
-    tokens, final = greedy_decode_hostloop(
-        model.language_model, logits, cache, max_new_tokens,
-        eos_token_id=eos_token_id, step_fn=step_fn)
-    recycled = {k: final[k] for k in cache_buffers}
-    return tokens, recycled
+    if lcfg.mega_decode:
+        server = step_fn if step_fn is not None else MegaServer(lcfg, model.language_model)
+        tokens, final = greedy_decode_hostloop_mega(
+            server, logits, cache, max_new_tokens, eos_token_id=eos_token_id)
+    else:
+        if step_fn is None:
+            step_fn = make_decode_step(model.language_model)
+        tokens, final = greedy_decode_hostloop(
+            model.language_model, logits, cache, max_new_tokens,
+            eos_token_id=eos_token_id, step_fn=step_fn)
+    if final["kv_mask"].shape[0] != batch["input_ids"].shape[0]:
+        return tokens, None
+    return tokens, {k: final[k] for k in cache_buffers}

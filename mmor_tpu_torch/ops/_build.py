@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface. The library lands in ``build/kernels/<hash>``
-at the root of the checkout (``.gitignore`` lists ``build/``), keyed by a hash
-of the sources and the flags, so an edited source rebuilds and an unchanged
-one loads in milliseconds. A missing ``nvcc`` or a failed compile raises.
+Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+source, all started together) and the objects link into one shared library
+with a plain C interface. The library lands in ``build/kernels/<hash>`` at the
+root of the checkout (``.gitignore`` lists ``build/``), keyed by a hash of the
+sources, their headers and the flags, so an edited source rebuilds and an
+unchanged one loads in milliseconds. A missing ``nvcc`` or a failed compile
+raises.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +37,8 @@ SIGNATURES = {
     "mmor_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "mmor_int8_matmul_w8a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmor_int8_matmul_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mmor_int4_matmul_w4a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mmor_mega_decode": (_P,) * 23 + (_I,) * 7 + (_F, _F, _P),
 }
 
 
@@ -56,7 +60,7 @@ def _sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -71,15 +75,30 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out + err)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-8000:]}")
         tmp_lib = Path(tmp) / lib.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-8000:]}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        (out_dir / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp_lib, lib)  # atomic: a concurrent loader sees all or none
     return lib, time.perf_counter() - t0
 

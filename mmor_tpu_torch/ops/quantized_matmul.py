@@ -1,10 +1,13 @@
-"""Int8 weight matmul: K2 and the int8 weight format.
+"""Packed-weight matmuls: K2 (int8 weights) and K3 (int4 weights).
 
-Counterpart of ``mmor_tpu/ops/quantized_matmul.py``. Weights are int8 with
-per-output-channel f32 scales, packed 4 rows per int32 word along K
-(``pack_int8_rows``) exactly as the JAX package stores them, so converted
-checkpoints load as they are and the CUDA kernel reads the words as
-tensor-core operands (``csrc/int8_matmul.cu``).
+Counterpart of ``mmor_tpu/ops/quantized_matmul.py``. The weight formats are
+the JAX package's, so converted checkpoints load as they are and the CUDA
+kernels read the words as tensor-core operands:
+
+- int8: per-output-channel f32 scales, 4 rows per int32 word along K
+  (``pack_int8_rows``); K2, ``csrc/int8_matmul.cu``;
+- int4: values in [-7, 7] with per-(K-group, channel) f32 scales, 8 biased
+  nibbles per int32 word (``pack_int4_rows``); K3, ``csrc/int4_matmul.cu``.
 """
 
 from __future__ import annotations
@@ -115,3 +118,118 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
 
 
 int8_matmul_packed.launches = 0
+
+
+# ------------------------------------------------------------------ int4
+def quantize_weights_int4(w: torch.Tensor, group: int = 1024
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, N) float -> (int4 values in an int8 carrier (K, N), scales
+    (K/group, N) f32): symmetric round-to-nearest per (K-group, output
+    channel) on the [-7, 7] grid (``quantized_matmul.py:270-284``)."""
+    k, n = w.shape
+    if k % group:
+        raise ValueError(f"K={k} is not a multiple of the group {group}")
+    wf = w.float().reshape(k // group, group, n)
+    amax = wf.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale[:, None, :]), -7, 7)
+    return q.reshape(k, n).to(torch.int8), scale
+
+
+def _pack_bytes(b: torch.Tensor) -> torch.Tensor:
+    """(..., 4, N) byte values 0..255 -> (..., N) int32, byte i at bits 8i."""
+    b = b.to(torch.int64)
+    word = b[..., 0, :] | (b[..., 1, :] << 8) | (b[..., 2, :] << 16) | (b[..., 3, :] << 24)
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def pack_int4_rows(w_q: torch.Tensor, block: int | None = None) -> torch.Tensor:
+    """int4 values (K, N) -> (K/8, N) int32 of biased nibbles (q + 8).
+
+    Within each K-``block`` (default: all of K), byte b of word r holds row
+    4r+b of the block in its low nibble and row block/2 + 4r+b in its high
+    nibble (``quantized_matmul.py:287-314``)."""
+    k, n = w_q.shape
+    block = k if block is None else block
+    if k % block or block % 8:
+        raise ValueError(f"K={k} must split into blocks of {block}, a multiple of 8")
+    u = ((w_q.to(torch.int32) + 8) & 0xF).reshape(k // block, 2, block // 8, 4, n)
+    return _pack_bytes(u[:, 0] | (u[:, 1] << 4)).reshape(k // 8, n)
+
+
+def unpack_int4_rows(w_p: torch.Tensor, block: int | None = None) -> torch.Tensor:
+    """Inverse of ``pack_int4_rows``: (K/8, N) int32 -> int4 values (K, N) int8."""
+    kp, n = w_p.shape
+    block = kp * 8 if block is None else block
+    wb = w_p.reshape(kp * 8 // block, 1, block // 8, 1, n)
+    nib = torch.arange(2, device=w_p.device).reshape(1, 2, 1, 1, 1) * 4
+    byte = torch.arange(4, device=w_p.device).reshape(1, 1, 1, 4, 1) * 8
+    u = (wb >> (byte + nib)) & 0xF  # (K/block, half, word, byte, N)
+    return (u - 8).to(torch.int8).reshape(kp * 8, n)
+
+
+def int4_matmul_packed_plain(x: torch.Tensor, w_p: torch.Tensor,
+                             scale: torch.Tensor, *, group: int = 1024,
+                             int8_mxu: bool = True) -> torch.Tensor:
+    """Plain PyTorch K3. ``int8_mxu``: the kernel's W4A8 numerics: per-row
+    int8 activations (``quantize_rows``), each K-group's int32 dot summed
+    exactly, folded in group order as acc += dot * scale[group] in f32, and
+    acc * row_scale cast to x.dtype. Otherwise the JAX CPU path
+    (``quantized_matmul.py:389-393``): f32 dequantization, then x @ w."""
+    m, k = x.shape
+    w4 = unpack_int4_rows(w_p, block=group)
+    if not int8_mxu:
+        w = (w4.float().reshape(k // group, group, -1) * scale[:, None, :].float())
+        return (x.float() @ w.reshape(k, -1)).to(x.dtype)
+    xq, rs = quantize_rows(x)
+    acc = torch.zeros(m, w_p.shape[1], dtype=torch.float32, device=x.device)
+    for kk in range(k // group):
+        rows = slice(kk * group, (kk + 1) * group)
+        dot = (xq[:, rows].double() @ w4[rows].double()).float()
+        acc = acc + dot * scale[kk][None, :].float()
+    return (acc * rs[:, None]).to(x.dtype)
+
+
+def int4_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
+                       *, group: int = 1024, int8_mxu: bool = True) -> torch.Tensor:
+    """K3: x (M, K) @ dequant(unpack4(w_p (K/8, N) int32)) with per-(group,
+    channel) ``scale`` (K/group, N) f32 -> (M, N) in x.dtype.
+
+    CPU: ``int4_matmul_packed_plain``. CUDA: the ``csrc/int4_matmul.cu``
+    kernels (K2's row quantization, then W4A8 on the int8 tensor cores) for
+    ``int8_mxu``; the W4A16 variant has no kernel and raises. Counts its
+    launches in ``int4_matmul_packed.launches``."""
+    m, k = x.shape
+    kp, n = w_p.shape
+    if kp * 8 != k or k % group or tuple(scale.shape) != (k // group, n):
+        raise ValueError(f"int4_matmul_packed: x K={k}, packed K/8={kp}, group "
+                         f"{group}, scale {tuple(scale.shape)}")
+    if x.device.type == "cpu":
+        return int4_matmul_packed_plain(x, w_p, scale, group=group, int8_mxu=int8_mxu)
+    if x.device.type != "cuda" or w_p.device != x.device or scale.device != x.device:
+        raise ValueError("int4_matmul_packed: operands must share one CUDA device")
+    if not int8_mxu:
+        raise NotImplementedError("int4_matmul_packed: W4A16 (int8_mxu=False) has "
+                                  "no CUDA kernel; serving runs W4A8")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4_matmul_packed: x dtype {x.dtype}")
+    if w_p.dtype != torch.int32 or scale.dtype != torch.float32:
+        raise TypeError("int4_matmul_packed: w_p must be int32, scale f32")
+    if group % 256:
+        raise ValueError(f"int4_matmul_packed: the kernel needs group % 256 == 0, "
+                         f"group={group}")
+    lib = _build.library()
+    xc, w_p, scale = _build.aligned(x), _build.aligned(w_p), _build.aligned(scale)
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    xq = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    rs = torch.empty(m, dtype=torch.float32, device=x.device)
+    err = lib.mmor_int4_matmul_w4a8(
+        _build.ptr(xc), _build.ptr(xq), _build.ptr(rs), _build.ptr(w_p),
+        _build.ptr(scale), _build.ptr(out), m, k, n, group,
+        int(x.dtype == torch.bfloat16), _build.stream())
+    _build.check(err, "int4_matmul_packed")
+    int4_matmul_packed.launches += 1
+    return out
+
+
+int4_matmul_packed.launches = 0

@@ -11,7 +11,12 @@ The input is the JAX package's tree with numpy leaves (for example
 - Embed ``embedding`` -> ``weight``;
 - the scanned ``blocks`` of the vision tower and the language model lose
   their leading layer axis to per-layer modules ``blocks.<i>``;
-- the packed int8 leaves (``w_p``, ``scale``) pass through unchanged.
+- the packed leaves (``w_p``, ``scale``) pass through unchanged: int8
+  ``w_p`` (K/4, N) with ``scale`` (N,), and int4 ``w_p`` (K/8, N) with
+  ``scale`` (K/group, N), for the fused ``qkv_proj`` / ``gate_up_proj`` too.
+
+``mega_cache_from_jax`` builds the port's int4 decode cache from the values
+of a JAX megakernel cache (for tests; the caller unpacks JAX's words).
 """
 
 from __future__ import annotations
@@ -99,3 +104,28 @@ def convert_llama(lm_params: dict) -> dict[str, torch.Tensor]:
     prefix = "language_model."
     full = convert_mm2sg({"language_model": inner})
     return {k[len(prefix):]: v for k, v in full.items()}
+
+
+def mega_cache_from_jax(k_int, k_scale, v_int, v_scale, kv_mask, write_pos: int,
+                        tok_pos) -> dict[str, torch.Tensor]:
+    """The port's int4 decode cache from a JAX int4 megakernel cache's
+    values: ``k_int``/``v_int`` (L, B, H, T, Dh) int4 values as
+    ``mmor_tpu.ops.mega_decode.unpack_k_int4`` / ``unpack_v_int4`` return
+    them, ``k_scale``/``v_scale`` (L, H, B, T) as that cache stores them,
+    ``kv_mask`` (B, T), ``tok_pos`` (B,). The port keeps (L, B, H, T, Dh/2)
+    nibble pairs and (L, B, H, T) bf16 scales (``ops/mega_decode.py``)."""
+    from mmor_tpu_torch.ops.mega_decode import pack_kv_int4
+
+    def pack(values):
+        return pack_kv_int4(torch.from_numpy((np.asarray(values, np.int16) + 8)
+                                             .astype(np.uint8)))
+
+    def scales(s):
+        return torch.from_numpy(np.asarray(s, np.float32).transpose(0, 2, 1, 3).copy()
+                                ).to(torch.bfloat16)
+
+    return dict(k=pack(k_int).contiguous(), k_s=scales(k_scale),
+                v=pack(v_int).contiguous(), v_s=scales(v_scale),
+                kv_mask=torch.from_numpy(np.asarray(kv_mask, np.int32).copy()),
+                write_pos=int(write_pos),
+                tok_pos=torch.from_numpy(np.asarray(tok_pos, np.int32).copy()))

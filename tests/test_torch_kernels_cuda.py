@@ -3,14 +3,18 @@
 Edge cases of the kernels' contracts that the serving shapes in
 ``chip_smoke.py`` do not reach: ragged rows and columns, Sq != Sk, separate
 key segment ids, fully masked query rows, f32 activations, the last layer of
-a cache stack. Every test needs a CUDA device and skips without one (the
-kernels have no CPU mode); run them on the card with
-``python -m pytest tests/test_torch_kernels_cuda.py -q``.
+a cache stack, a decode batch row with no valid cache position, the batch
+bucket after EOS compaction. Every test needs a CUDA device and skips
+without one (the kernels have no CPU mode); run them on the card with
+``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
 Tolerances: bf16 attention rel_l2 <= 2e-2 (the kernels round the softmax
 weights to bf16 before P.V, unnormalized, where the plain version rounds
-them normalized); W8A8 bit-exact (same integer products, same epilogue
-order); W8A16 rel_l2 <= 1e-3 (f32 sums in another order, one bf16 rounding).
+them normalized); W8A8 and W4A8 bit-exact (same integer products, same
+epilogue order); W8A16 rel_l2 <= 1e-3 (f32 sums in another order, one bf16
+rounding); K5 x_out rel_l2 <= 2e-3 and its new K/V columns identical in
+>= 99.9% of entries, never more than 1 apart (f32 sums in another order in
+RMSNorm and softmax can move an int8 activation bin by one).
 """
 
 import numpy as np
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from mmor_tpu_torch.ops import attention as A
+from mmor_tpu_torch.ops import mega_decode as M
 from mmor_tpu_torch.ops import quantized_matmul as Q
 
 pytestmark = pytest.mark.cuda
@@ -135,3 +140,85 @@ def test_decode_attention_kernel_last_layer(dev, d, t):
     assert rel_l2(out, ref) <= 1e-2
     with pytest.raises(IndexError):
         A.decode_attention_packed_stack(q, k8, v8, ks, vs, mask, L)
+
+
+@pytest.mark.parametrize("m,k,n,group,dtype", [
+    (1, 256, 40, 256, torch.bfloat16),
+    (13, 1024, 72, 256, torch.bfloat16),     # decode kernel, ragged N
+    (100, 2048, 90, 1024, torch.bfloat16),   # tiled kernel, ragged M and N, N % 4 != 0
+    (70, 512, 64, 256, torch.float32),       # f32 activations
+])
+def test_int4_matmul_kernel(dev, m, k, n, group, dtype):
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    x[0] = 0  # a zero row takes row scale 1
+    w_q, scale = Q.quantize_weights_int4(torch.randn(k, n, generator=g, device=dev) * 0.05,
+                                         group)
+    w_p = Q.pack_int4_rows(w_q, group)
+    before = Q.int4_matmul_packed.launches
+    out = Q.int4_matmul_packed(x, w_p, scale, group=group)
+    ref = Q.int4_matmul_packed_plain(x, w_p, scale, group=group)
+    torch.cuda.synchronize()
+    assert Q.int4_matmul_packed.launches == before + 1
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out.float().cpu().numpy(), ref.float().cpu().numpy())
+    with pytest.raises(NotImplementedError):
+        Q.int4_matmul_packed(x, w_p, scale, group=group, int8_mxu=False)
+
+
+def _mega_inputs(dev, batch: int, t_cap: int = 64, n_layers: int = 2):
+    """Random int4 weights (dim 512, 4 heads of 128, ffn 1024, group 256)
+    and an int4 cache whose rows hold different numbers of positions."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    d, f, h, grp = 512, 1024, 4, 256
+    shapes = ((d, 3 * d), (d, d), (d, 2 * f), (f, d))
+    layers = [[] for _ in range(8)]
+    for _ in range(n_layers):
+        for i, (k, n) in enumerate(shapes):
+            w_q, sc = Q.quantize_weights_int4(
+                torch.randn(k, n, generator=g, device=dev) * 0.02, grp)
+            layers[2 * i].append(Q.pack_int4_rows(w_q, grp))
+            layers[2 * i + 1].append(sc)
+    weights = M.MegaWeights(layers, 1 + 0.1 * torch.randn(n_layers, 2, d, generator=g,
+                                                          device=dev), grp, f, h)
+    shape = (n_layers, batch, h, t_cap, 64)
+    cache = {name: torch.randint(0, 256, shape, generator=g, device=dev,
+                                 dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
+    for name in ("k_s", "v_s"):
+        cache[name] = (torch.rand(shape[:-1], generator=g, device=dev) * 0.05 + 0.01
+                       ).to(torch.bfloat16)
+    mask = torch.zeros(batch, t_cap, dtype=torch.int32, device=dev)
+    for r in range(batch):
+        mask[r, r % 8: t_cap - 8 - 4 * (r % 4)] = 1
+    tok_pos = torch.arange(batch, dtype=torch.int32, device=dev) + 40
+    cache.update(kv_mask=mask, write_pos=t_cap - 8, tok_pos=tok_pos)
+    x = randn(g, batch, d, dev=dev)
+    cos, sin = M.rope_tables(tok_pos, 128, 10000.0)
+    return x, weights, cache, cos, sin
+
+
+def _assert_mega_close(got, ref):
+    assert rel_l2(got[0], ref[0]) <= 2e-3
+    for i in (1, 3):
+        diff = (got[i].int() - ref[i].int()).abs()
+        assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+    for i in (2, 4):
+        assert rel_l2(got[i], ref[i]) <= 2e-3
+
+
+@pytest.mark.parametrize("case", ["two_layers", "fully_masked_row", "bucket_after_compaction"])
+def test_mega_decode_kernel(dev, case):
+    x, weights, cache, cos, sin = _mega_inputs(dev, 16 if case.startswith("bucket") else 8)
+    if case == "fully_masked_row":
+        cache["kv_mask"][3] = 0  # row 3 attends to its current token alone
+    if case == "bucket_after_compaction":
+        lanes = torch.tensor([0, 2, 5, 9, 12, 15, 15, 15], device=dev)
+        cache = M.compact_cache(cache, lanes)
+        x, cos, sin = x[lanes].contiguous(), cos[lanes], sin[lanes]
+    before = M.mega_decode_layers.launches
+    got = M.mega_decode_layers(x, weights, cache, cos, sin)
+    ref = M.mega_decode_layers_plain(x, weights, cache, cos, sin)
+    torch.cuda.synchronize()
+    assert M.mega_decode_layers.launches == before + 1
+    assert got[0].shape == x.shape and got[1].shape == (2, x.shape[0], 4, 128)
+    _assert_mega_close(got, ref)  # both layers, the last one included

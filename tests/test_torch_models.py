@@ -295,8 +295,8 @@ def test_predictor_validate_matches_jax(mm2sg_pair, tmp_path):
     jpred = JPredictor(cfg=jmodel.cfg, model=jmodel,
                        params=jax.tree.map(jnp.asarray, params),
                        tokenizer=JByteTokenizer(), prompt_bucket=64)
-    tpred = SceneGraphPredictor(cfg=tmodel.cfg, model=tmodel,
-                                tokenizer=ByteTokenizer(), prompt_bucket=64)
+    tpred = SceneGraphPredictor(cfg=tmodel.cfg, model=tmodel, tokenizer=ByteTokenizer(),
+                                device="cpu", prompt_bucket=64)
     chunks = [items[:2], items[2:]]
     jbatch = jpred.build_batch(chunks[0])
     assert "pc_points" in jbatch  # the MM-OR item carries a raw cloud

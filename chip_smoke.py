@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 Phases (each prints its lines; any failure exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles K1-K5 from ``mmor_tpu_torch/csrc`` (one nvcc a source);
+1. build: compiles K1-K6 from ``mmor_tpu_torch/csrc`` (one nvcc a source);
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes, with the bound stated on each line, and its time
    beside its roofline bound, the plain version's time and, where one
@@ -27,7 +27,19 @@ Phases (each prints its lines; any failure exits non-zero):
    version, each of the 32 layers alone within phase 2's bounds and the
    whole depth at once; and one decode step's logits with K5 against the
    same step with its plain version;
-6. CLI: ``evaluate_sg --preset 7b --quantize int4``.
+6. CLI: ``evaluate_sg --preset 7b --quantize int4``;
+7. panoptic path: DVIS++ online (ResNet-50, the MSDeformAttn pixel decoder
+   through K6, the Mask2Former video decoder, the referring tracker) at full
+   widths in bf16 on a seeded 9-frame 736x1280 uint8 video, in 3-frame
+   windows with the tracker's state carried, through the CLI's window step:
+   frames/s, ms/frame, K6's launches, peak memory and the device's busy
+   share; then K6 against its plain version on each encoder layer's
+   sampler operands as one served window recorded them, within phase 2's
+   bound, and, as a smoke check, one window with K6 against the same window
+   with its plain version (the pixel decoder's outputs and the window's
+   logits and masks, each within a measured rounding floor);
+8. CLI: ``mmor_tpu_torch.cli.eval_panoptic --synthetic`` (512x512 f32, full
+   widths): VPQ and STQ.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset.
@@ -64,13 +76,18 @@ KERNELS = {
     "K5 mega_decode_layers": (
         "cuda", "mmor_tpu_torch/csrc/mega_decode.cu",
         "mmor_tpu/ops/mega_decode.py:1131"),
+    "K6 ms_deform_attn": (
+        "cuda", "mmor_tpu_torch/csrc/ms_deform_attn.cu",
+        "mmor_tpu/ops/deformable_sampler.py:268"),
 }
-# the kernels each serving path runs (phase 3: int8, phase 5: int4)
+# the kernels each serving path runs (phase 3: int8, phase 5: int4,
+# phase 7: panoptic)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
     "int4": ("K1 flash_attention", "K2 int8_matmul_packed", "K3 int4_matmul_packed",
              "K5 mega_decode_layers"),
+    "panoptic": ("K6 ms_deform_attn",),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -101,6 +118,16 @@ LAUNCH_STEPS = 8  # decode steps profiled to count launches a step (phase 5)
 # rel_l2 2e-3; the new K/V columns agree in >= 99.9% of entries and never
 # differ by more than one.
 K5_X_BOUND, K5_KV_AGREE = 2e-3, 0.999
+# K6 against its plain version: both take the same f32 products and sums (in
+# another order) and round once to the value's dtype, so bf16 outputs differ
+# by one rounding step where the two f32 sums fall on either side of a
+# rounding boundary, and f32 outputs by the sums' order alone. Measured on an
+# H100: rel_l2 2.1e-5 to 2.5e-5 in bf16, 1.0e-7 to 1.4e-7 in f32; the bounds
+# leave 40x and 7x of room.
+K6_BOUND = {"bf16": 1e-3, "f32": 1e-6}
+# panoptic path (phase 7): frames at the JAX bench's 736x1280 in 3-frame
+# windows, three windows a video
+PANOPTIC_SIZE, PANOPTIC_FRAMES = (736, 1280), 9
 
 
 def say(phase: str, **fields) -> None:
@@ -145,19 +172,21 @@ def check(ok: bool, what: str) -> None:
 
 def kernel_modules():
     from mmor_tpu_torch.ops import attention as A
+    from mmor_tpu_torch.ops import deformable_sampler as D
     from mmor_tpu_torch.ops import mega_decode as M
     from mmor_tpu_torch.ops import quantized_matmul as Q
 
-    return A, Q, M
+    return A, Q, M, D
 
 
 def _wrappers() -> dict:
-    A, Q, M = kernel_modules()
+    A, Q, M, D = kernel_modules()
     return {"K1 flash_attention": A.flash_attention,
             "K2 int8_matmul_packed": Q.int8_matmul_packed,
             "K3 int4_matmul_packed": Q.int4_matmul_packed,
             "K4 decode_attention_packed_stack": A.decode_attention_packed_stack,
-            "K5 mega_decode_layers": M.mega_decode_layers}
+            "K5 mega_decode_layers": M.mega_decode_layers,
+            "K6 ms_deform_attn": D.ms_deform_attn_sampler}
 
 
 def launch_counts() -> dict:
@@ -174,15 +203,19 @@ def plain_versions(perturb=None):
     """Route the models' kernel calls to the plain PyTorch versions (the
     models look the wrappers up on their modules at call time).
 
-    With a ``torch.Generator`` as ``perturb``, every attention output is
-    also multiplied by (1 + u * 2**-8), u uniform in [-1, 1]: a rounding-
-    sized change of each attention call, which measures how far such
-    changes alone move the logits of this randomly initialised model."""
+    With a ``torch.Generator`` as ``perturb``, every attention output (and
+    every deformable attention sample) is also multiplied by
+    (1 + u * 2**-8), u uniform in [-1, 1]: a rounding-sized change of each
+    call, which measures how far such changes alone move the outputs of
+    this randomly initialised model."""
     import torch
 
-    A, Q, M = kernel_modules()
+    from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
+
+    A, Q, M, D = kernel_modules()
     saved = (A.flash_attention, A.decode_attention_packed_stack, Q.int8_matmul_packed,
-             Q.int4_matmul_packed, M.mega_decode_layers, M._attention_plain)
+             Q.int4_matmul_packed, M.mega_decode_layers, M._attention_plain,
+             D.ms_deform_attn_sampler)
     reference, mega_attention = A.mha_reference, M._attention_plain
 
     def perturbed(out):
@@ -200,11 +233,36 @@ def plain_versions(perturb=None):
     Q.int4_matmul_packed = Q.int4_matmul_packed_plain
     M.mega_decode_layers = mega_plain
     M._attention_plain = lambda *a: perturbed(mega_attention(*a))
+    D.ms_deform_attn_sampler = lambda *a: perturbed(ms_deform_attn(*a))
     try:
         yield
     finally:
         (A.flash_attention, A.decode_attention_packed_stack, Q.int8_matmul_packed,
-         Q.int4_matmul_packed, M.mega_decode_layers, M._attention_plain) = saved
+         Q.int4_matmul_packed, M.mega_decode_layers, M._attention_plain,
+         D.ms_deform_attn_sampler) = saved
+
+
+@contextlib.contextmanager
+def recording_sampler(records: list):
+    """Route the models' K6 calls through a recorder: each call launches the
+    kernel as before and appends (value, shapes, locations, weights, out).
+    The wrapper counts its launches on the module's name, the recorder's
+    while it is in place; the count is handed over both ways."""
+    D = kernel_modules()[3]
+    kernel = D.ms_deform_attn_sampler
+
+    def record(value, shapes, loc, attn):
+        out = kernel(value, shapes, loc, attn)
+        records.append((value, shapes, loc, attn, out))
+        return out
+
+    record.launches = kernel.launches
+    D.ms_deform_attn_sampler = record
+    try:
+        yield
+    finally:
+        D.ms_deform_attn_sampler = kernel
+        kernel.launches = record.launches
 
 
 def roofline_ms(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -312,7 +370,7 @@ def kernel_cases(dev):
     import torch
     import torch.nn.functional as F
 
-    A, Q, M = kernel_modules()
+    A, Q, M, _ = kernel_modules()
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
 
@@ -414,6 +472,98 @@ def kernel_cases(dev):
         {"cuda_core": 4.0 * H * valid * D}))
 
     cases.append(_k5_case(dev, g))
+    cases.extend(_k6_cases(dev, g))
+    return cases
+
+
+def grid_sample_core(value, shapes, loc, attn):
+    """The reference's ``ms_deform_attn_core_pytorch``: one ``grid_sample``
+    a level (zero padding, ``align_corners=False``), then the weighted sum;
+    K6's library yardstick (timed only). It samples in f32: a bf16 grid
+    would place samples up to half a pixel off at these map widths."""
+    import torch
+    import torch.nn.functional as F
+
+    n, _, m, d = value.shape
+    _, lq, _, levels, points, _ = loc.shape
+    values = value.float().split([h * w for h, w in shapes], dim=1)
+    grids = 2 * loc - 1
+    samples = []
+    for lvl, (h, w) in enumerate(shapes):
+        v = values[lvl].flatten(2).transpose(1, 2).reshape(n * m, d, h, w)
+        g = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)
+        samples.append(F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                                     align_corners=False))
+    a = attn.transpose(1, 2).reshape(n * m, 1, lq, levels * points)
+    out = (torch.stack(samples, dim=-2).flatten(-2) * a).sum(-1).view(n, m * d, lq)
+    return out.transpose(1, 2).to(value.dtype).contiguous()
+
+
+def k6_inputs(dev, g, shapes, n, m, d, dtype, spread_px=None):
+    """K6's operands as the pixel decoder builds them: a query at every
+    pixel centre of every level (Lq = S); offsets the reference's
+    directional init (head h along angle 2 pi h / M, point p at p + 1
+    pixels of the level) plus N(0, 0.3) pixels, or with ``spread_px``
+    uniform in +-spread_px pixels (many samples off the map); weights
+    softmaxed over L x P in the value's dtype; f32 locations."""
+    import torch
+
+    from mmor_tpu_torch.models.layers import offset_bias_grid
+
+    levels, points = len(shapes), 4
+    s = sum(h * w for h, w in shapes)
+    refs = []
+    for h, w in shapes:
+        ys = (torch.arange(h, device=dev) + 0.5) / h
+        xs = (torch.arange(w, device=dev) + 0.5) / w
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        refs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
+    refs = torch.cat(refs)  # (S, 2)
+    if spread_px is None:
+        off = offset_bias_grid(m, levels, points).to(dev).view(m, levels, points, 2)
+        off = off + 0.3 * torch.randn(n, s, m, levels, points, 2, generator=g, device=dev)
+    else:
+        off = (torch.rand(n, s, m, levels, points, 2, generator=g, device=dev) * 2 - 1
+               ) * spread_px
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
+    loc = refs[None, :, None, None, None, :] + off / norm[None, None, None, :, None, :]
+    value = torch.randn(n, s, m, d, generator=g, device=dev).to(dtype)
+    attn = torch.softmax(torch.randn(n, s, m, levels * points, generator=g, device=dev), -1)
+    attn = attn.to(dtype).view(n, s, m, levels, points)
+    return value, loc.float().contiguous(), attn
+
+
+def _k6_cases(dev, g):
+    """K6 at the panoptic serving shapes (3 frames of 736x1280 in bf16:
+    levels 23x40, 46x80, 92x160, M=8, D=32), the same with offsets up to
+    +-32 pixels, the CLI's 512x512 f32 shapes, and the tiny config's D=4."""
+    import torch
+
+    from mmor_tpu_torch.ops import deformable_sampler as D
+    from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
+
+    serving = ((23, 40), (46, 80), (92, 160))
+    cases = []
+    for name, shapes, d, dtype, spread, on_path in (
+            ("serving N=3 736x1280 bf16 init offsets", serving, 32, torch.bfloat16, None, True),
+            ("serving N=3 736x1280 bf16 offsets +-32px", serving, 32, torch.bfloat16, 32.0,
+             False),
+            ("cli N=3 512x512 f32", ((16, 16), (32, 32), (64, 64)), 32, torch.float32, None,
+             False),
+            ("tiny N=3 64x64 f32 D=4", ((2, 2), (4, 4), (8, 8)), 4, torch.float32, 3.0,
+             False)):
+        args = (*k6_inputs(dev, g, shapes, 3, 8, d, dtype, spread),)
+        value, loc, attn = args
+        nbytes = (value.numel() * value.element_size() * 2 + loc.numel() * 4
+                  + attn.numel() * attn.element_size())  # value in, out, loc, attn
+        ops = {"cuda_core": 8.0 * value.numel() * loc.shape[3] * loc.shape[4]}
+        cases.append(Case(
+            "K6 ms_deform_attn", name,
+            lambda s=shapes, a=args: D.ms_deform_attn_sampler(a[0], s, a[1], a[2]),
+            lambda s=shapes, a=args: ms_deform_attn(a[0], s, a[1], a[2]),
+            K6_BOUND["bf16" if dtype == torch.bfloat16 else "f32"], 20, on_path,
+            nbytes, ops,
+            library=lambda s=shapes, a=args: grid_sample_core(a[0], s, a[1], a[2])))
     return cases
 
 
@@ -651,9 +801,10 @@ K5_KERNEL_NAMES = ("w4a8::skinny_kernel", "attention_kernel", "norm_quant_kernel
                    "widen_kernel", "narrow_kernel")
 
 
-def device_window(dev, fn) -> tuple[int, float, float, float]:
-    """(device events, device busy us, host wall us, us in K5's kernels) of
-    one call of ``fn`` under torch.profiler."""
+def device_window(dev, fn, names=K5_KERNEL_NAMES) -> tuple[int, float, float, float]:
+    """(device events, device busy us, host wall us, us in the kernels whose
+    names contain one of ``names``) of one call of ``fn`` under
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -665,7 +816,7 @@ def device_window(dev, fn) -> tuple[int, float, float, float]:
         wall_us = (time.perf_counter() - t) * 1e6
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     k5_us = sum(e.time_range.elapsed_us() for e in events
-                if any(k in e.name for k in K5_KERNEL_NAMES))
+                if any(k in e.name for k in names))
     return len(events), sum(e.time_range.elapsed_us() for e in events), wall_us, k5_us
 
 
@@ -842,13 +993,175 @@ def k5_full_depth(server, cache: dict, tok, lc) -> None:
         full_depth_x_out_rel_l2=f"{depth_err:.3e}", full_depth_kv_agree=f"{depth_agree:.5f}")
 
 
+# ---------------------------------------------------------------- phase 7
+def panoptic_config():
+    """DVIS++ online at the JAX bench's full widths (``bench.py``'s
+    ``panoptic_metric``): ResNet-50, 6 deformable encoder layers, 100
+    queries, 9 decoder layers, 124 classes, a 6-layer tracker (inference
+    takes no query-order noise); computed in bf16, parameters in f32."""
+    import torch
+
+    from mmor_tpu_torch.models.mask2former_decoder import MaskDecoderConfig
+    from mmor_tpu_torch.models.meta_arch import DVISConfig
+    from mmor_tpu_torch.models.segmenter import SegmenterConfig
+    from mmor_tpu_torch.models.tracker import TrackerConfig
+
+    bf = torch.bfloat16
+    return DVISConfig(
+        segmenter=SegmenterConfig(decoder=MaskDecoderConfig(dtype=bf), dtype=bf),
+        tracker=TrackerConfig(dtype=bf))
+
+
+def phase_panoptic(dev, profile_dir: str | None = None) -> dict:
+    """DVIS++ online serving on a 9-frame 736x1280 video in 3-frame windows
+    through the CLI's window step (the tracker's state carried across
+    windows); returns K6's launch count over the warm and timed runs."""
+    import numpy as np
+    import torch
+
+    from mmor_tpu_torch.cli.eval_panoptic import make_window_step
+    from mmor_tpu_torch.eval.video_inference import run_window_inference
+    from mmor_tpu_torch.models.meta_arch import DVISPlus, init_random
+    from mmor_tpu_torch.models.segmenter import normalize_pixels
+    from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
+
+    t0 = time.perf_counter()
+    cfg = panoptic_config()
+    with torch.device(dev):
+        model = DVISPlus(cfg)
+    init_random(model, seed=0)
+    model.eval()
+    (h, w), t = PANOPTIC_SIZE, cfg.window_size
+    video = np.random.default_rng(0).integers(0, 256, (PANOPTIC_FRAMES, h, w, 3),
+                                              dtype=np.uint8)
+    step = make_window_step(model, t)
+    sync(dev)
+    windows = -(-PANOPTIC_FRAMES // t)
+    say("7 panoptic", step="setup", seconds=f"{time.perf_counter() - t0:.2f}",
+        params=sum(p.numel() for p in model.parameters()), frames=PANOPTIC_FRAMES,
+        size=f"{h}x{w}", window=t, dtype="bf16")
+
+    reset_launch_counts()
+    run_window_inference(step, video, t)  # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for i in range(2):
+        sync(dev)
+        t1 = time.perf_counter()
+        out = run_window_inference(step, video, t)
+        sync(dev)
+        total = time.perf_counter() - t1
+        runs.append(out)
+        say("7 panoptic", step=f"run{i + 1}", frames_per_s=f"{PANOPTIC_FRAMES / total:.4f}",
+            ms_per_frame=f"{total * 1e3 / PANOPTIC_FRAMES:.3f}", total_s=f"{total:.4f}")
+    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["panoptic"]}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_layers = cfg.segmenter.pixel_decoder_layers
+    say("7 panoptic", step="launches", peak_mem_bytes=peak, windows_per_run=windows,
+        K6_per_window=f"{counts['K6 ms_deform_attn'] / (3 * windows):.1f}",
+        **{k.split()[0]: v for k, v in counts.items()})
+    check(counts["K6 ms_deform_attn"] == 3 * windows * n_layers,
+          f"K6 launched {counts['K6 ms_deform_attn']} times, not {n_layers} a window")
+    q, k1 = cfg.segmenter.decoder.num_queries, cfg.segmenter.decoder.num_classes + 1
+    check(out["pred_logits"].shape == (PANOPTIC_FRAMES, q, k1)
+          and out["pred_masks"].shape == (PANOPTIC_FRAMES, q, h // 4, w // 4),
+          f"outputs {out['pred_logits'].shape} {out['pred_masks'].shape}")
+    check(all(np.isfinite(v).all() for v in out.values()), "non-finite outputs")
+    check(all(np.array_equal(runs[0][k], runs[1][k]) for k in out),
+          "two runs on the same video disagree")
+
+    frames = video[:t]
+    n_ev, busy_us, wall_us, k6_us = device_window(dev, lambda: step(frames, None),
+                                                  names=("ms_deform_attn",))
+    say("7 panoptic", step="window-profile", launches=n_ev,
+        device_busy_ms=f"{busy_us / 1e3:.3f}", wall_ms=f"{wall_us / 1e3:.3f}",
+        busy_share=f"{busy_us / wall_us:.4f}",
+        k6_device_ms=f"{k6_us / 1e3:.3f}", k6_share_of_busy=f"{k6_us / busy_us:.4f}")
+    # one stream: the device events cannot overlap, so a share above 1 means
+    # the device-time sum is wrong
+    check(busy_us <= 1.01 * wall_us,
+          f"device busy {busy_us:.0f} us > wall {wall_us:.0f} us: events overlap")
+    if profile_dir:
+        profile_window(dev, "panoptic_window", lambda: step(frames, None), profile_dir,
+                       phase="7 profile")
+
+    # K6 against its plain version on the served model's own operands: each
+    # of the encoder layers' sampler calls in one window, recorded as the
+    # kernel ran them, held at phase 2's bound
+    records = []
+    with recording_sampler(records):
+        step(frames, None)
+    check(len(records) == n_layers, f"{len(records)} K6 calls in a window, not {n_layers}")
+    errs = []
+    for i, (value, shapes, loc, attn, got) in enumerate(records):
+        ref = ms_deform_attn(value, shapes, loc, attn)
+        check(got.dtype == ref.dtype == attn.dtype == torch.bfloat16,
+              f"K6 encoder layer {i}: {got.dtype}/{ref.dtype}/{attn.dtype}, not bf16")
+        check(bool(torch.isfinite(got.float()).all()), f"K6 encoder layer {i}: non-finite")
+        errs.append(rel_l2(got, ref))
+        check(errs[-1] <= K6_BOUND["bf16"],
+              f"K6 encoder layer {i}: rel_l2 {errs[-1]:.3e} > {K6_BOUND['bf16']:.0e}")
+    say("7 panoptic", step="k6-vs-plain-by-layer", layers=len(records),
+        worst_rel_l2=f"{max(errs):.3e}", bound=f"{K6_BOUND['bf16']:.0e}",
+        rel_l2_by_layer=",".join(f"{e:.3e}" for e in errs),
+        value=tuple(records[0][0].shape), loc=tuple(records[0][2].shape))
+    del records
+
+    # a smoke check of the whole: the pixel decoder's outputs and one
+    # window's outputs against the spread that one rounding step of every
+    # sampler output causes in this random model. The bf16 chain after the
+    # sampler spreads any difference to about a rounding step of every
+    # entry, so these sit near their floor whatever the sampler's error
+    # below it: the per-layer check above is the one that bounds K6.
+    with torch.no_grad():
+        feats = model.segmenter.backbone(normalize_pixels(torch.from_numpy(frames).to(dev)))
+        pd_k = model.segmenter.pixel_decoder(feats)
+        with plain_versions():
+            pd_p = model.segmenter.pixel_decoder(feats)
+        with plain_versions(perturb=torch.Generator(device=dev).manual_seed(1)):
+            pd_n = model.segmenter.pixel_decoder(feats)
+    out_k, _ = step(frames, None)
+    with plain_versions():
+        out_p, _ = step(frames, None)
+    with plain_versions(perturb=torch.Generator(device=dev).manual_seed(2)):
+        out_n, _ = step(frames, None)
+    pairs = [("mask_features", pd_k[0], pd_p[0], pd_n[0])]
+    pairs += [(f"map{i}", a, b, c) for i, (a, b, c) in enumerate(zip(pd_k[1], pd_p[1], pd_n[1]))]
+    pairs += [(key, torch.from_numpy(out_k[key]), torch.from_numpy(out_p[key]),
+               torch.from_numpy(out_n[key])) for key in ("pred_logits", "pred_masks")]
+    for name, got, ref, noisy in pairs:
+        err, floor = rel_l2(got, ref), rel_l2(noisy, ref)
+        bound = LOGITS_FLOOR_FACTOR * floor
+        say("7 panoptic", step="k6-vs-plain-smoke", output=name, rel_l2=f"{err:.3e}",
+            rounding_floor_rel_l2=f"{floor:.3e}", bound=f"{bound:.3e}")
+        check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+        check(err <= bound, f"{name}: K6 vs plain rel_l2 {err:.3e} > {bound:.3e}")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_panoptic_cli(dev) -> dict:
+    import math
+
+    from mmor_tpu_torch.cli import eval_panoptic
+
+    t = time.perf_counter()
+    summary = eval_panoptic.main(["--synthetic", "--device", dev.type])
+    check({"vpq", "stq"} <= set(summary), "no report")
+    check(all(math.isfinite(summary[k]) for k in ("vpq", "stq")), "non-finite VPQ/STQ")
+    say("8 panoptic-cli", size="512x512", dtype="f32", seconds=f"{time.perf_counter() - t:.2f}",
+        vpq=summary["vpq"], stq=summary["stq"],
+        vpq_per_window=json.dumps(summary["vpq_per_window"]).replace(" ", ""))
+    return summary
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="phases 3 and 5 also write per-kernel device time tables to DIR")
+                   help="phases 3, 5 and 7 also write per-kernel device time tables to DIR")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -905,6 +1218,12 @@ def main(argv=None) -> int:
             release()
         if 6 in phases:
             phase_cli(dev, quantize="int4", phase="6 cli")
+            release()
+        if 7 in phases:
+            by_path["panoptic"] = phase_panoptic(dev, profile_dir=args.profile)
+            release()
+        if 8 in phases:
+            phase_panoptic_cli(dev)
     except Failed as e:
         say("FAIL", reason=str(e).replace(" ", "_"))
         return 1

@@ -64,3 +64,44 @@ def init_params(module: nn.Module, generator: torch.Generator,
                 noise = torch.randn(p.shape, generator=generator,
                                     device=generator.device, dtype=torch.float32)
                 p.copy_(noise.mul_(std))
+
+
+class Conv2d(nn.Module):
+    """``flax.linen.Conv`` on NCHW tensors: ``weight`` (O, I, kh, kw) is the
+    flax HWIO ``kernel`` transposed; computed in ``dtype``. ``padding`` is the
+    symmetric padding of each spatial side (flax "SAME" at stride 1 is
+    k // 2; the JAX package spells out the other cases)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, *,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel, kernel,
+                                               dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.empty(out_channels, dtype=param_dtype))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+                        stride=self.stride, padding=self.padding)
+
+
+class GroupNorm(nn.Module):
+    """``flax.linen.GroupNorm`` on NCHW tensors: f32 statistics over each
+    group's channels and pixels, output in ``dtype``."""
+
+    def __init__(self, groups: int, channels: int, eps: float, *,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.groups, self.eps, self.dtype = groups, eps, dtype
+        self.scale = nn.Parameter(torch.empty(channels, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.empty(channels, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.groups, self.scale.float(), self.bias.float(),
+                         self.eps)
+        return y.to(self.dtype)

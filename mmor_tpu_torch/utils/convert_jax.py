@@ -15,6 +15,12 @@ The input is the JAX package's tree with numpy leaves (for example
   ``w_p`` (K/4, N) with ``scale`` (N,), and int4 ``w_p`` (K/8, N) with
   ``scale`` (K/group, N), for the fused ``qkv_proj`` / ``gate_up_proj`` too.
 
+``convert_dvis`` maps the DVIS++ tree (``mmor_tpu.models.meta_arch.DVISPlus``)
+onto ``mmor_tpu_torch.models.meta_arch.DVISPlus``: Dense kernels and conv
+kernels as above, every other leaf (norm scales and biases, FrozenBN,
+``level_embed``, ``query_feat``, ``query_embed``) as it is; the offline
+refiner's subtree is skipped (not ported).
+
 ``mega_cache_from_jax`` builds the port's int4 decode cache from the values
 of a JAX megakernel cache (for tests; the caller unpacks JAX's words).
 """
@@ -104,6 +110,21 @@ def convert_llama(lm_params: dict) -> dict[str, torch.Tensor]:
     prefix = "language_model."
     full = convert_mm2sg({"language_model": inner})
     return {k[len(prefix):]: v for k, v in full.items()}
+
+
+def convert_dvis(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``DVISPlus`` tree -> state dict for the port's ``DVISPlus``."""
+    tree = params.get("params", params)
+    out: dict[str, torch.Tensor] = {}
+    for path, x in _flatten(tree).items():
+        parts = path.split("/")
+        if parts[0] == "refiner":
+            continue
+        leaf = parts[-1]
+        if leaf == "kernel":
+            leaf, x = "weight", (x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T)
+        out[".".join(parts[:-1] + [leaf])] = _to_torch(x)
+    return out
 
 
 def mega_cache_from_jax(k_int, k_scale, v_int, v_scale, kv_mask, write_pos: int,

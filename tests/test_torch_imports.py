@@ -40,6 +40,8 @@ def test_port_imports_no_jax():
     modules = _port_modules()
     assert "mmor_tpu_torch.models.mm2sg" in modules
     assert "mmor_tpu_torch.ops.mega_decode" in modules
+    assert "mmor_tpu_torch.cli.eval_panoptic" in modules
+    assert "mmor_tpu_torch.ops.deformable_sampler" in modules
     _assert_imports_clean(modules)
 
 

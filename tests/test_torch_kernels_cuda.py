@@ -14,7 +14,10 @@ them normalized); W8A8 and W4A8 bit-exact (same integer products, same
 epilogue order); W8A16 rel_l2 <= 1e-3 (f32 sums in another order, one bf16
 rounding); K5 x_out rel_l2 <= 2e-3 and its new K/V columns identical in
 >= 99.9% of entries, never more than 1 apart (f32 sums in another order in
-RMSNorm and softmax can move an int8 activation bin by one).
+RMSNorm and softmax can move an int8 activation bin by one); K6 rel_l2
+<= 1e-3 in bf16 (both versions round the same f32 sum once; the sums' order
+differs) and max abs <= 1e-5 in f32, exact where a sample sits on a pixel
+centre with weight 1 or wholly off the map.
 """
 
 import numpy as np
@@ -22,8 +25,10 @@ import pytest
 import torch
 
 from mmor_tpu_torch.ops import attention as A
+from mmor_tpu_torch.ops import deformable_sampler as D
 from mmor_tpu_torch.ops import mega_decode as M
 from mmor_tpu_torch.ops import quantized_matmul as Q
+from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +227,79 @@ def test_mega_decode_kernel(dev, case):
     assert M.mega_decode_layers.launches == before + 1
     assert got[0].shape == x.shape and got[1].shape == (2, x.shape[0], 4, 128)
     _assert_mega_close(got, ref)  # both layers, the last one included
+
+
+def _k6_args(g, dev, shapes, n, lq, m, d, dtype, spread=0.2):
+    """Locations uniform in [-spread, 1 + spread] (some off the map), weights
+    softmaxed over L x P in ``dtype``."""
+    levels, points = len(shapes), 4
+    s = sum(h * w for h, w in shapes)
+    value = randn(g, n, s, m, d, dev=dev, dtype=dtype)
+    loc = torch.rand(n, lq, m, levels, points, 2, generator=g, device=dev)
+    loc = loc * (1 + 2 * spread) - spread
+    attn = torch.softmax(torch.randn(n, lq, m, levels * points, generator=g, device=dev), -1)
+    return value, loc, attn.to(dtype).view(n, lq, m, levels, points)
+
+
+@pytest.mark.parametrize("shapes,n,lq,d,dtype", [
+    (((1, 1), (1, 7), (5, 1), (6, 9)), 1, 37, 4, torch.float32),  # 1-pixel levels
+    (((23, 40), (46, 80)), 3, 1001, 32, torch.bfloat16),
+    (((8, 8), (16, 16), (32, 32)), 3, 333, 8, torch.float32),
+    (((8, 8), (16, 16), (32, 32)), 1, 333, 32, torch.float32),
+    (((4, 5), (8, 10)), 3, 77, 4, torch.bfloat16),
+])
+def test_ms_deform_attn_kernel(dev, shapes, n, lq, d, dtype):
+    """Lq is no multiple of the 8 warps of a block; D 4 and 8 share a warp
+    between heads."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    value, loc, attn = _k6_args(g, dev, shapes, n, lq, 8, d, dtype)
+    before = D.ms_deform_attn_sampler.launches
+    got = D.ms_deform_attn_sampler(value, shapes, loc, attn)
+    ref = ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert D.ms_deform_attn_sampler.launches == before + 1
+    assert got.shape == (n, lq, 8 * d) and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert rel_l2(got, ref) <= 1e-3
+    else:
+        assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_ms_deform_attn_kernel_exact_samples(dev):
+    """Weight 1 on a sample at a pixel centre gives that pixel's value; a
+    query whose samples all lie far off the map (weights 0 and 1) gives 0."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes = ((4, 8), (2, 4))  # power-of-2 sizes: pixel centres exact in f32
+    value, loc, attn = _k6_args(g, dev, shapes, 2, 5, 2, 8, torch.float32)
+    loc[:] = torch.tensor([-3.0, 4.5], device=dev)  # every sample off the map
+    attn.zero_()
+    attn[:, :, :, 0, 0] = 1.0
+    row, col = 2, 5  # level 0's pixel (2, 5), centre ((5 + .5) / 8, (2 + .5) / 4)
+    loc[:, 1, :, 0, 0] = torch.tensor([(col + 0.5) / 8, (row + 0.5) / 4], device=dev)
+    got = D.ms_deform_attn_sampler(value, shapes, loc, attn).view(2, 5, 2, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 1], value[:, row * 8 + col])
+    assert torch.equal(got[:, [0, 2, 3, 4]], torch.zeros_like(got[:, [0, 2, 3, 4]]))
+
+
+def test_ms_deform_attn_kernel_copies_non_contiguous_inputs(dev):
+    """The wrapper makes non-contiguous operands contiguous (a copy) and
+    gives the same result; it refuses gradients, a ``loc`` that is not f32
+    and weights in another dtype than the value's."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    shapes = ((8, 10), (4, 5))
+    value, loc, attn = _k6_args(g, dev, shapes, 3, 120, 8, 32, torch.bfloat16)
+    strided = (value.transpose(1, 2).contiguous().transpose(1, 2),
+               loc.permute(1, 0, 2, 3, 4, 5).contiguous().permute(1, 0, 2, 3, 4, 5),
+               attn.transpose(0, 1).contiguous().transpose(0, 1))
+    assert not any(x.is_contiguous() for x in strided)
+    want = D.ms_deform_attn_sampler(value, shapes, loc, attn)
+    got = D.ms_deform_attn_sampler(strided[0], shapes, strided[1], strided[2])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        D.ms_deform_attn_sampler(value, shapes, loc.bfloat16(), attn)
+    with pytest.raises(TypeError):
+        D.ms_deform_attn_sampler(value, shapes, loc, attn.float())
+    with pytest.raises(NotImplementedError):
+        D.ms_deform_attn_sampler(value.float().requires_grad_(), shapes, loc, attn.float())

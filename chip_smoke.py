@@ -8,11 +8,15 @@ Run from the root of a checkout, with no arguments:
 Phases (each prints its lines; any failure exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles K1-K6 from ``mmor_tpu_torch/csrc`` (one nvcc a source);
+1. build: compiles K1-K6 and K5's piggyback-prefill rows (K5-pf) from
+   ``mmor_tpu_torch/csrc`` (one nvcc a source);
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes, with the bound stated on each line, and its time
    beside its roofline bound, the plain version's time and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time; K5-pf at 7B
+   widths and depth 2 (8 decode rows, a 128-row chunk, a 768-column working
+   cache) also holds the decode rows bit-identical to the same call without
+   the chunk;
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
@@ -39,7 +43,17 @@ Phases (each prints its lines; any failure exits non-zero):
    with its plain version (the pixel decoder's outputs and the window's
    logits and masks, each within a measured rounding floor);
 8. CLI: ``mmor_tpu_torch.cli.eval_panoptic --synthetic`` (512x512 f32, full
-   widths): VPQ and STQ.
+   widths): VPQ and STQ;
+9. overlapped int4 path: phase 5's model and inputs through
+   ``generate_overlapped`` (each later batch's prompt carried, 128 tokens a
+   step, by the previous batch's K5 steps): steady and fill-inclusive
+   frames/s over a stream of same-shape batches beside the serial path's,
+   ms per plain and per pf step, launches per pf step, K5-pf's device time
+   per step against its bound, peak memory and the launch counts of K1, K2,
+   K3, K5 and K5-pf; batch 0's tokens against ``generate_stepwise``'s; one
+   handed-off stream's cache against the same prompt token by token through
+   K5 (the CPU test's bounds), and its first token's logits against that
+   oracle's within a rounding floor measured in the run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset.
@@ -76,18 +90,23 @@ KERNELS = {
     "K5 mega_decode_layers": (
         "cuda", "mmor_tpu_torch/csrc/mega_decode.cu",
         "mmor_tpu/ops/mega_decode.py:1131"),
+    "K5-pf mega_decode_layers(pf)": (
+        "cuda", "mmor_tpu_torch/csrc/mega_decode.cu",
+        "mmor_tpu/ops/mega_decode.py:853"),
     "K6 ms_deform_attn": (
         "cuda", "mmor_tpu_torch/csrc/ms_deform_attn.cu",
         "mmor_tpu/ops/deformable_sampler.py:268"),
 }
 # the kernels each serving path runs (phase 3: int8, phase 5: int4,
-# phase 7: panoptic)
+# phase 7: panoptic, phase 9: overlapped int4)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
     "int4": ("K1 flash_attention", "K2 int8_matmul_packed", "K3 int4_matmul_packed",
              "K5 mega_decode_layers"),
     "panoptic": ("K6 ms_deform_attn",),
+    "overlap": ("K1 flash_attention", "K2 int8_matmul_packed", "K3 int4_matmul_packed",
+                "K5 mega_decode_layers", "K5-pf mega_decode_layers(pf)"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -128,6 +147,16 @@ K6_BOUND = {"bf16": 1e-3, "f32": 1e-6}
 # panoptic path (phase 7): frames at the JAX bench's 736x1280 in 3-frame
 # windows, three windows a video
 PANOPTIC_SIZE, PANOPTIC_FRAMES = (736, 1280), 9
+# overlapped path (phase 9): prompt tokens a pf step (the JAX bench's
+# chunk); the stream is warmed with 2 batches, then timed over 2 and over 4
+# (bench.py's marginal rate, with 4 in place of its 6 to keep the phase
+# near a minute)
+OVERLAP_CHUNK, OVERLAP_WARM, OVERLAP_SHORT, OVERLAP_LONG = 128, 2, 2, 4
+# the handed-off cache against its token-by-token oracle
+# (tests/test_torch_overlap.py's bounds): layer 0's K/V bit-exact, later
+# layers within one int4 bin in more than this share of entries, scales
+# within this rel_l2
+ORACLE_BIN_SHARE, ORACLE_REL = 0.9, 0.05
 
 
 def say(phase: str, **fields) -> None:
@@ -179,23 +208,27 @@ def kernel_modules():
     return A, Q, M, D
 
 
-def _wrappers() -> dict:
+def _counters() -> dict:
+    """Each kernel's launch count: (wrapper, attribute). K5's wrapper counts
+    its launches with pf rows (K5-pf) apart from those without."""
     A, Q, M, D = kernel_modules()
-    return {"K1 flash_attention": A.flash_attention,
-            "K2 int8_matmul_packed": Q.int8_matmul_packed,
-            "K3 int4_matmul_packed": Q.int4_matmul_packed,
-            "K4 decode_attention_packed_stack": A.decode_attention_packed_stack,
-            "K5 mega_decode_layers": M.mega_decode_layers,
-            "K6 ms_deform_attn": D.ms_deform_attn_sampler}
+    return {"K1 flash_attention": (A.flash_attention, "launches"),
+            "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
+            "K3 int4_matmul_packed": (Q.int4_matmul_packed, "launches"),
+            "K4 decode_attention_packed_stack": (A.decode_attention_packed_stack,
+                                                 "launches"),
+            "K5 mega_decode_layers": (M.mega_decode_layers, "launches"),
+            "K5-pf mega_decode_layers(pf)": (M.mega_decode_layers, "pf_launches"),
+            "K6 ms_deform_attn": (D.ms_deform_attn_sampler, "launches")}
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 @contextlib.contextmanager
@@ -299,15 +332,19 @@ def _attention_mask(b, sq, sk, causal, seg, dev):
     return mask
 
 
-def _k5_case(dev, g):
+def _k5_cases(dev, g):
     """K5 at full 7B width and depth 2: B=8, T=1024 with a partly masked
-    int4 cache, random hidden states, int4 weights in 1024-row groups."""
+    int4 cache, random hidden states, int4 weights in 1024-row groups; then
+    K5-pf, the same call carrying a 128-row chunk against a 768-column
+    working cache of which 384 columns are written (a stream's fourth chunk
+    at phase 9's shapes)."""
     import torch
 
     from mmor_tpu_torch.ops import mega_decode as M
     from mmor_tpu_torch.ops import quantized_matmul as Q
 
     L, B, H, T, dh, D, F, G = 2, 8, 32, 1024, 128, 4096, 11264, 1024
+    C, T2, WP = 128, 768, 384
     shapes = ((D, 3 * D), (D, D), (D, 2 * F), (F, D))
     layers = [[] for _ in range(8)]
     for _ in range(L):
@@ -318,11 +355,16 @@ def _k5_case(dev, g):
             layers[2 * i + 1].append(sc)
     norms = 1 + 0.1 * torch.randn(L, 2, D, generator=g, device=dev)
     weights = M.MegaWeights(layers, norms, G, F, H)
-    cache = {name: torch.randint(0, 256, (L, B, H, T, dh // 2), generator=g, device=dev,
-                                 dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
-    for name in ("k_s", "v_s"):
-        cache[name] = (torch.rand(L, B, H, T, generator=g, device=dev) * 0.05 + 0.01
-                       ).to(torch.bfloat16)
+
+    def int4_cache(*lead):
+        cache = {name: torch.randint(0, 256, (*lead, dh // 2), generator=g, device=dev,
+                                     dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
+        for name in ("k_s", "v_s"):
+            cache[name] = (torch.rand(*lead, generator=g, device=dev) * 0.05 + 0.01
+                           ).to(torch.bfloat16)
+        return cache
+
+    cache = int4_cache(L, B, H, T)
     mask = torch.zeros(B, T, dtype=torch.int32, device=dev)
     for r in range(B):
         mask[r, 8 * r: 708 + 37 * r] = 1
@@ -330,24 +372,104 @@ def _k5_case(dev, g):
                  tok_pos=torch.arange(700, 700 + B, dtype=torch.int32, device=dev))
     x = torch.randn(B, D, generator=g, device=dev).to(torch.bfloat16)
     cos, sin = M.rope_tables(cache["tok_pos"], dh, 10000.0)
-    scratch = M.alloc_scratch(weights, B, dev)
     table = weights.pointer_table()
     args = (x, weights, cache, cos, sin)
     valid = int(mask.sum())
     weight_bytes = L * sum(k * n // 2 + (k // G) * n * 4 for k, n in shapes)
     kv_bytes = L * H * valid * 2 * (dh // 2 + 2)
     nbytes = weight_bytes + kv_bytes + B * T * 4 + 2 * B * D * 2 + L * B * H * (2 * dh + 8)
-    ops = {"int8": 2.0 * L * B * sum(k * n for k, n in shapes),
-           "cuda_core": 4.0 * L * H * valid * dh}
+    weight_ops = 2.0 * L * sum(k * n for k, n in shapes)  # a row's int8 operations
+    ops = {"int8": B * weight_ops, "cuda_core": 4.0 * L * H * valid * dh}
 
     def extra(out, ref):
         return {k: f"{v:.5f}" if k.endswith("agree") else f"{v:.3e}"
                 for k, v in k5_columns(out, ref, "K5").items()}
 
-    return Case("K5 mega_decode_layers", f"7B L={L} B={B} T={T} partly masked",
-                lambda: M.mega_decode_layers(*args, scratch=scratch, pointer_table=table),
-                lambda: M.mega_decode_layers_plain(*args), K5_X_BOUND, 10, True,
-                nbytes, ops, extra=extra)
+    scratch = M.alloc_scratch(weights, B, dev)
+    k5 = Case("K5 mega_decode_layers", f"7B L={L} B={B} T={T} partly masked",
+              lambda: M.mega_decode_layers(*args, scratch=scratch, pointer_table=table),
+              lambda: M.mega_decode_layers_plain(*args), K5_X_BOUND, 10, True,
+              nbytes, ops, extra=extra)
+
+    # the chunk: row i at position WP + i of a stream whose first 5 columns
+    # are left padding (masked in the working cache and, as keys, by amask)
+    work = int4_cache(L, H, T2)
+    amask = torch.ones(C, dtype=torch.int32, device=dev)
+    amask[:5] = 0
+    wmask = torch.zeros(T2, dtype=torch.int32, device=dev)
+    wmask[5:WP] = 1
+    pcos, psin = M.rope_tables(torch.arange(WP, WP + C, device=dev) - 5, dh, 10000.0)
+    pf = dict(x=torch.randn(C, D, generator=g, device=dev).to(torch.bfloat16), cos=pcos,
+              sin=psin, amask=amask, mask=wmask, **work)
+    scratch_pf = M.alloc_scratch(weights, B + C, dev)
+    base = M.mega_decode_layers(*args, scratch=scratch, pointer_table=table)
+    w_valid = int(wmask.sum())
+    # the decode call's bytes, the written working-cache columns, the chunk's
+    # mask, embeddings in and out, RoPE tables and amask, and its new columns
+    pf_bytes = (nbytes + L * H * w_valid * 2 * (dh // 2 + 2) + T2 * 4 + 2 * C * D * 2
+                + C * (2 * dh * 4 + 4) + L * C * H * (2 * dh + 8))
+    inline_pairs = sum(min(i + 1, C) for i in range(C))  # causal (i, j <= i) pairs
+    pf_ops = {"int8": (B + C) * weight_ops,
+              "cuda_core": 4.0 * L * H * (valid + C * w_valid + inline_pairs) * dh}
+
+    def extra_pf(out, ref):
+        """The decode rows: phase 2's K5 checks, and bit-identical to the same
+        call without the chunk. The chunk rows: each layer alone, fed the
+        plain version's outputs of the layer before (as phase 5 holds K5),
+        within K5_X_BOUND and K5_KV_AGREE; the whole depth is printed beside
+        them, with the floor of each: the plain version against itself with
+        the chunk's RoPE tables times (1 + 1e-7 u), u standard normal. One
+        flipped int8 key of a chunk row moves every later row's causal
+        attention, so the chunk rows' rounding floor is far above the
+        decode rows'."""
+        fields = {k: f"{v:.5f}" if k.endswith("agree") else f"{v:.3e}"
+                  for k, v in k5_columns(out, ref, "K5-pf decode rows").items()}
+        same = all(torch.equal(a, b) for a, b in zip(out[:5], base))
+        check(same, "K5-pf: the decode rows differ from the same call without the chunk")
+        check(bool(torch.isfinite(out[5]["x"].float()).all()), "K5-pf chunk x non-finite")
+        keys = ("x", "knew", "knew_s", "vnew", "vnew_s")
+        gen = torch.Generator(device=dev).manual_seed(3)
+
+        def nudged(p):  # the chunk's RoPE tables moved by about an f32 rounding
+            return dict(p, **{k: p[k] * (1 + 1e-7 * torch.randn(p[k].shape, generator=gen,
+                                                                device=dev))
+                              for k in ("cos", "sin")})
+
+        depth_floor = rel_l2(M.mega_decode_layers_plain(*args, pf=nudged(pf))[5]["x"],
+                             ref[5]["x"])
+        worst_err, worst_agree, worst_floor, x_in, pf_in = 0.0, 1.0, 0.0, x, pf
+        for li in range(L):
+            one = M.MegaWeights([[slot[li]] for slot in layers], norms[li:li + 1], G, F, H)
+            c1 = dict(cache, **{k: cache[k][li:li + 1] for k in ("k", "v", "k_s", "v_s")})
+            p1 = dict(pf_in, **{k: pf[k][li:li + 1] for k in ("k", "v", "k_s", "v_s")})
+            got1 = M.mega_decode_layers(x_in, one, c1, cos, sin, scratch=scratch_pf, pf=p1)
+            ref1 = M.mega_decode_layers_plain(x_in, one, c1, cos, sin, pf=p1)
+            err = rel_l2(got1[5]["x"], ref1[5]["x"])
+            check(err <= K5_X_BOUND,
+                  f"K5-pf layer {li}: chunk x rel_l2 {err:.3e} > {K5_X_BOUND:.0e}")
+            cols = k5_columns([got1[5][k] for k in keys], [ref1[5][k] for k in keys],
+                              f"K5-pf layer {li} chunk rows")
+            floor = rel_l2(M.mega_decode_layers_plain(x_in, one, c1, cos, sin,
+                                                      pf=nudged(p1))[5]["x"], ref1[5]["x"])
+            worst_err = max(worst_err, err)
+            worst_floor = max(worst_floor, floor)
+            worst_agree = min(worst_agree, cols["knew_agree"], cols["vnew_agree"])
+            x_in, pf_in = ref1[0], dict(pf_in, x=ref1[5]["x"])
+        fields.update(decode_rows_bit_identical_to_no_pf=same,
+                      chunk_by_layer_worst_x_rel_l2=f"{worst_err:.3e}",
+                      chunk_by_layer_worst_kv_agree=f"{worst_agree:.5f}",
+                      chunk_by_layer_worst_floor_rel_l2=f"{worst_floor:.3e}",
+                      chunk_full_depth_x_rel_l2=f"{rel_l2(out[5]['x'], ref[5]['x']):.3e}",
+                      chunk_full_depth_floor_rel_l2=f"{depth_floor:.3e}")
+        return fields
+
+    k5_pf = Case("K5-pf mega_decode_layers(pf)",
+                 f"7B L={L} B={B} T={T} + chunk {C} T2={T2} wp={WP}",
+                 lambda: M.mega_decode_layers(*args, scratch=scratch_pf, pointer_table=table,
+                                              pf=pf),
+                 lambda: M.mega_decode_layers_plain(*args, pf=pf), K5_X_BOUND, 10, True,
+                 pf_bytes, pf_ops, extra=extra_pf)
+    return [k5, k5_pf]
 
 
 def k5_columns(out, ref, what: str) -> dict:
@@ -471,7 +593,7 @@ def kernel_cases(dev):
         H * valid * 2 * (D + 2) + B * T * 4 + 2 * B * H * D * 2,
         {"cuda_core": 4.0 * H * valid * D}))
 
-    cases.append(_k5_case(dev, g))
+    cases.extend(_k5_cases(dev, g))
     cases.extend(_k6_cases(dev, g))
     return cases
 
@@ -614,13 +736,13 @@ def phase_kernels(dev, summary: dict) -> None:
 
 
 # ---------------------------------------------------------------- phase 3
-def left_padded_batch(cfg, batch: int, prompt_len: int, dev):
+def left_padded_batch(cfg, batch: int, prompt_len: int, dev, seed: int = 0):
     """The seeded example batch at native view sizes, with row r left-padded
     by 8r tokens (so RoPE positions and cache slots differ by row)."""
     from mmor_tpu_torch.config import example_batch
     from mmor_tpu_torch.sg.prompts import IMAGE_TOKEN_INDEX
 
-    data = example_batch(cfg, batch, prompt_len, seed=0, device=dev, raw_views=True)
+    data = example_batch(cfg, batch, prompt_len, seed=seed, device=dev, raw_views=True)
     ids, mask = data["input_ids"], data["attention_mask"]
     for r in range(batch):
         pad = min(8 * r, prompt_len - 8)
@@ -798,7 +920,7 @@ def phase_cli(dev, preset_name: str = "7b", quantize: str = "int8", phase: str =
 # ---------------------------------------------------------------- phase 5
 # the kernels of csrc/mega_decode.cu (K5), by name in a profiler trace
 K5_KERNEL_NAMES = ("w4a8::skinny_kernel", "attention_kernel", "norm_quant_kernel",
-                   "widen_kernel", "narrow_kernel")
+                   "widen_kernel", "narrow_kernel", "chunk_rope_quant_kernel")
 
 
 def device_window(dev, fn, names=K5_KERNEL_NAMES) -> tuple[int, float, float, float]:
@@ -1155,13 +1277,232 @@ def phase_panoptic_cli(dev) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------- phase 9
+def k5_roofline(weights, lc, rows: int, kv_valid: int, work_valid: int = 0,
+                chunk: int = 0) -> tuple[float, str]:
+    """K5's bound for one step at full depth: every layer's int4 weights and
+    scales read once for ``rows`` activation rows, the valid int4 K/V
+    positions of the decode cache (and of the working cache) with their
+    scales; the int8 matmul operations and the attention's dot products
+    (with pf rows: the chunk's working-cache columns and its causal
+    pairs)."""
+    w_bytes = sum(t.numel() * t.element_size() for slot in weights.layers for t in slot)
+    n_weights = sum(2 * t.numel() * t.element_size() for slot in weights.layers[0::2]
+                    for t in slot)  # two int4 values a byte of the packed words
+    per_pos = lc.n_layers * lc.n_heads * 2 * (lc.head_dim // 2 + 2)
+    pairs = kv_valid + chunk * work_valid + chunk * (chunk + 1) // 2
+    return roofline_ms(w_bytes + per_pos * (kv_valid + work_valid),
+                       {"int8": 2.0 * rows * n_weights,
+                        "cuda_core": 4.0 * lc.n_layers * lc.n_heads * pairs * lc.head_dim})
+
+
+def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
+                  new_tokens: int = NEW_TOKENS, chunk: int = OVERLAP_CHUNK,
+                  profile_dir: str | None = None) -> dict:
+    """MM2SG ``--quantize int4`` serving through ``generate_overlapped`` on
+    phase 5's inputs (batches alternate between two seeded batches of that
+    shape); returns the launch counts of the warm and timed streams."""
+    import torch
+
+    from mmor_tpu_torch.cli.common import build_predictor
+    from mmor_tpu_torch.inference import ByteTokenizer
+    from mmor_tpu_torch.models.llama import alloc_kv_buffers
+    from mmor_tpu_torch.models.mm2sg import generate_overlapped, generate_stepwise
+    from mmor_tpu_torch.ops import mega_decode as M
+    from mmor_tpu_torch.ops import mega_overlap as O
+
+    t0 = time.perf_counter()
+    predictor = build_predictor("7b", ByteTokenizer(), None, quantize="int4", device=dev,
+                                seed=0)
+    model, cfg = predictor.model, predictor.model.cfg
+    lc = cfg.llama
+    data = [left_padded_batch(cfg, batch, prompt_len, dev, seed=s) for s in (0, 1)]
+    cache_len = predictor._cache_len_for(prompt_len)
+    t_out = prompt_len + cfg.num_multimodal_tokens - 1
+    kw = dict(max_cache_len=cache_len, max_new_tokens=new_tokens, eos_token_id=-1,
+              chunk=chunk)
+    stream = lambda n: [data[i % 2] for i in range(n)]
+    sync(dev)
+    say("9 overlap", step="setup", seconds=f"{time.perf_counter() - t0:.2f}", batch=batch,
+        prompt=prompt_len, t_out=t_out, new_tokens=new_tokens, chunk=chunk,
+        cache_len=cache_len)
+
+    ec: dict = {}
+    reset_launch_counts()
+    generate_overlapped(model, stream(OVERLAP_WARM), engine_cache=ec, **kw)  # warm
+    server = ec["server"]
+    nc, t2 = server.t2 // chunk, server.t2
+    handed = []  # each handoff's (hidden states, cache)
+    handoff = server.handoff
+
+    def recording_handoff(cache, full, amask, hidden):
+        out = handoff(cache, full, amask, hidden)
+        handed.append(hidden)
+        return out
+
+    server.handoff = recording_handoff
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = {}
+    for n in (OVERLAP_SHORT, OVERLAP_LONG):
+        sync(dev)
+        t1 = time.perf_counter()
+        outs = generate_overlapped(model, stream(n), engine_cache=ec, **kw)
+        sync(dev)
+        secs[n] = time.perf_counter() - t1
+    server.handoff = handoff
+    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["overlap"]}
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = batch * (OVERLAP_LONG - OVERLAP_SHORT) / (secs[OVERLAP_LONG] - secs[OVERLAP_SHORT])
+    check(len(outs) == OVERLAP_LONG and all(o.shape == (batch, new_tokens) for o in outs),
+          "overlapped outputs of the wrong shape")
+    check(all(((o >= 0) & (o < lc.vocab_size)).all() for o in outs), "token ids out of range")
+
+    # the serial path on the same inputs: batch 0's tokens, and its frames/s
+    server_serial = predictor._step
+    serial_s = []
+    for _ in range(2):
+        sync(dev)
+        t1 = time.perf_counter()
+        serial, _ = generate_stepwise(model, data[0], max_cache_len=cache_len,
+                                      max_new_tokens=new_tokens, eos_token_id=-1,
+                                      step_fn=server_serial)
+        sync(dev)
+        serial_s.append(time.perf_counter() - t1)
+    same0 = bool((outs[0] == serial).all())
+    say("9 overlap", step="stream", steady_frames_per_s=f"{steady:.4f}",
+        fill_inclusive_frames_per_s=f"{batch * OVERLAP_LONG / secs[OVERLAP_LONG]:.4f}",
+        serial_frames_per_s=f"{batch / serial_s[-1]:.4f}",
+        serial_frames_per_s_first=f"{batch / serial_s[0]:.4f}",
+        t_short_s=f"{secs[OVERLAP_SHORT]:.4f}", t_long_s=f"{secs[OVERLAP_LONG]:.4f}",
+        batches=f"{OVERLAP_SHORT},{OVERLAP_LONG}", nc=nc, t2=t2,
+        pf_steps_per_batch=batch * nc, peak_mem_bytes=peak,
+        batch0_equals_serial=same0, **{k.split()[0]: v for k, v in counts.items()})
+    for name, n in counts.items():
+        check(n > 0, f"{name} was not launched on the overlapped path")
+    check(same0, "batch 0's tokens differ from generate_stepwise's")
+
+    # step times: plain and pf steps that leave the state as it is, from
+    # batch 0's prefill and batch 1's first stream's fourth chunk
+    prefill, encode = ec["prefill"], ec["encode"]
+    bufs = alloc_kv_buffers(lc, batch, cache_len, dev)
+    logits, cache = prefill(data[0], bufs)
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+    embeds, mask = encode(data[1])
+    embeds = torch.nn.functional.pad(embeds, (0, 0, 0, t2 - t_out))
+    mask = torch.nn.functional.pad(mask.to(torch.int32), (0, t2 - t_out))
+    pos = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0).to(torch.int32)
+    work = O.alloc_pf_work(lc, t2, dev)
+    j = min(3, nc - 1)
+    span = slice(j * chunk, (j + 1) * chunk)
+    ck = dict(x=embeds[0, span], pos=pos[0, span], amask=mask[0, span],
+              stream_amask=mask[0], wp=j * chunk)
+    plain_step = M.make_mega_decode_step(server.mega, batch, update_cache=False)
+    pf_step = O.make_overlap_step(server.mega, batch, chunk, t2, update_state=False)
+    n_steps = LAUNCH_STEPS
+
+    def plain_steps():
+        for _ in range(n_steps):
+            plain_step(cache, tok)
+
+    def pf_steps():
+        for _ in range(n_steps):
+            pf_step(cache, tok, work, ck)
+
+    plain_steps()
+    pf_steps()
+    ms = {}
+    for name, fn in (("plain", plain_steps), ("pf", pf_steps), ("pf2", pf_steps),
+                     ("plain2", plain_steps)):
+        sync(dev)
+        t1 = time.perf_counter()
+        fn()
+        sync(dev)
+        ms[name] = (time.perf_counter() - t1) * 1e3 / n_steps
+    n_ev, busy_us, wall_us, k5_us = device_window(dev, pf_steps)
+    kv_valid = int(cache["kv_mask"].sum())
+    w_valid = int((mask[0] * (torch.arange(t2, device=dev) < j * chunk)).sum())
+    pf_bound, pf_by = k5_roofline(server.mega.weights, lc, batch + chunk, kv_valid,
+                                  w_valid, chunk)
+    plain_bound, plain_by = k5_roofline(server.mega.weights, lc, batch, kv_valid)
+    say("9 overlap", step="step-times", steps=n_steps,
+        plain_ms_per_step=f"{ms['plain']:.3f},{ms['plain2']:.3f}",
+        pf_ms_per_step=f"{ms['pf']:.3f},{ms['pf2']:.3f}",
+        pf_launches_per_step=f"{n_ev / n_steps:.1f}",
+        pf_device_busy_ms_per_step=f"{busy_us / 1e3 / n_steps:.3f}",
+        pf_idle_share=f"{max(0.0, 1 - busy_us / wall_us):.4f}",
+        k5pf_device_ms_per_step=f"{k5_us / 1e3 / n_steps:.3f}",
+        k5pf_bound_ms=f"{pf_bound:.4f}", k5pf_bound_by=pf_by,
+        k5_plain_bound_ms=f"{plain_bound:.4f}", k5_plain_bound_by=plain_by)
+    if profile_dir:
+        profile_window(dev, f"overlap_pf_{n_steps}_steps", pf_steps, profile_dir,
+                       phase="9 profile")
+        profile_window(dev, f"overlap_plain_{n_steps}_steps", plain_steps, profile_dir,
+                       phase="9 profile")
+
+    # one stream of the last timed batch (seed 1's row 1, left-padded by 8):
+    # its handed-off cache and first token against the same prompt's real
+    # tokens one by one through K5 (row 0 of a 2-row oracle; row 1 takes
+    # each embedding times (1 + u * 2**-8), a rounding step, for the floor)
+    s_row = 1
+    final = ec["bufs"]  # the last batch's cache: its prompt columns as handed off
+    cols = torch.nonzero(mask[s_row, :t_out]).flatten()
+    n = len(cols)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x_rows = embeds[s_row, cols]
+    noisy = (x_rows.float() * (1 + (torch.rand(x_rows.shape, generator=gen, device=dev)
+                                    * 2 - 1) * 2.0 ** -8)).to(torch.bfloat16)
+    oc = dict(alloc_kv_buffers(lc, 2, cache_len, dev),
+              kv_mask=torch.zeros(2, cache_len, dtype=torch.int32, device=dev), write_pos=0,
+              tok_pos=torch.zeros(2, dtype=torch.int32, device=dev))
+    scratch2 = M.alloc_scratch(server.mega.weights, 2, dev)
+    for t in range(n):
+        cos, sin = M.rope_tables(oc["tok_pos"], lc.head_dim, lc.rope_theta)
+        xh, *new = M.mega_decode_layers(torch.stack([x_rows[t], noisy[t]]),
+                                        server.mega.weights, oc, cos, sin, eps=lc.norm_eps,
+                                        scratch=scratch2,
+                                        pointer_table=server.mega.pointer_table)
+        oc = M.apply_kv_update(oc, *new)
+    pad = int(cols[0])
+    shares, scale_errs = [], []
+    for name in ("k", "v"):
+        got = M.unpack_kv_int4(final[name][:, s_row, :, pad:t_out]).int()
+        want = M.unpack_kv_int4(oc[name][:, 0, :, :n]).int()
+        check(torch.equal(got[0], want[0]), f"handed-off {name}: layer 0 not bit-exact")
+        shares.append(float(((got - want).abs() <= 1).float().mean()))
+        scale_errs.append(rel_l2(final[name + "_s"][:, s_row, :, pad:t_out],
+                                 oc[name + "_s"][:, 0, :, :n]))
+    # the last prompt token's hidden state, held through the first token's
+    # logits: at full depth the random model spreads any difference (phase
+    # 5's per-layer rounding of 3e-5 reaches 3e-2), so it is bounded by the
+    # spread that a rounding step of the inputs causes, as phase 5 does
+    hidden = handed[-1][s_row]
+    logits = server.mega.head(torch.stack([hidden, xh[0], xh[1]])).float()
+    err, floor = rel_l2(logits[0], logits[1]), rel_l2(logits[2], logits[1])
+    bound = LOGITS_FLOOR_FACTOR * floor
+    say("9 overlap", step="handoff-vs-tokenwise-oracle", stream=s_row, pad=pad, tokens=n,
+        layer0_kv_bit_exact=True, kv_within_one_bin=f"{min(shares):.5f}",
+        bin_bound=ORACLE_BIN_SHARE, scale_rel_l2=f"{max(scale_errs):.3e}",
+        scale_bound=ORACLE_REL, hidden_rel_l2=f"{rel_l2(hidden, xh[0]):.3e}",
+        hidden_floor_rel_l2=f"{rel_l2(xh[1], xh[0]):.3e}",
+        first_token_logits_rel_l2=f"{err:.3e}", rounding_floor_rel_l2=f"{floor:.3e}",
+        bound=f"{bound:.3e}",
+        first_token_agree=int(logits[0].argmax()) == int(logits[1].argmax()),
+        phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    check(min(shares) > ORACLE_BIN_SHARE, f"handed-off K/V within one bin {min(shares):.5f}")
+    check(max(scale_errs) < ORACLE_REL, f"handed-off scales rel_l2 {max(scale_errs):.3e}")
+    check(bool(torch.isfinite(logits).all()), "non-finite first-token logits")
+    check(err <= bound, f"first-token logits rel_l2 {err:.3e} > {bound:.3e}")
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="phases 3, 5 and 7 also write per-kernel device time tables to DIR")
+                   help="phases 3, 5, 7 and 9 also write per-kernel device time tables "
+                        "to DIR")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1224,6 +1565,9 @@ def main(argv=None) -> int:
             release()
         if 8 in phases:
             phase_panoptic_cli(dev)
+            release()
+        if 9 in phases:
+            by_path["overlap"] = phase_overlap(dev, profile_dir=args.profile)
     except Failed as e:
         say("FAIL", reason=str(e).replace(" ", "_"))
         return 1

@@ -1,31 +1,49 @@
 // K5: one decode position through every decoder layer, int4 weights and an
-// int4 KV cache (wbits = kvbits = 4).
+// int4 KV cache (wbits = kvbits = 4), with optional piggyback-prefill (pf)
+// rows.
 //
 // Replaces mmor_tpu/ops/mega_decode.py::mega_decode_layers (_mega_kernel,
-// the pl.pallas_call at :1323) without its piggyback-prefill rows; the
-// arithmetic is that of mega_decode_layers_reference (:1386-1589).
+// the pl.pallas_call at :1323), its pf_chunk branches included (:548-567,
+// :853-913); the arithmetic is that of mega_decode_layers_reference
+// (:1386-1589).
 //
 // What bounds it on the H100: bytes. Each decode step reads every layer's
 // int4 weights once (about 3.3 GB at 7B) for B <= 64 rows, and each (row,
 // head) reads its layer's valid int4 keys and values (64 bytes a position
 // each); the arithmetic is a few operations a byte. On the TPU the step was
 // bound by the fixed cost of each launch, which is why it became one kernel.
+// The pf rows (c prompt tokens of one stream of the next batch) add c rows
+// to every matmul: at c = 128 their int8 operations at the card's peak take
+// about as long as the weight bytes, so the step's least time barely grows,
+// which is why they ride along. The skinny W4A8 kernel reads the weights
+// once per 16-row tile, though, so today a step with them costs several
+// plain steps; sharing one weight read among the tiles is a later change.
 //
 // Design: one C entry point runs all L layers with no Python between them;
 // for each layer it enqueues a fixed sequence of kernels on the caller's
-// stream:
+// stream, over R = B + c activation rows (the chunk's rows after the decode
+// rows):
 //   1. RMSNorm (its mean of squares in double, a row's chunk blocks one
 //      cluster sharing their partial sums) and int8 quantization per
 //      (row, ck-chunk), in f32 as x * (1/rs);
 //   2. fused-qkv W4A8 (w4a8.cuh), each chunk's exact int32 dot folded with
 //      its weight scale and row-chunk scale;
-//   3. attention, one block per (row, head): RoPE, per-(row, head) int8
-//      quantization of q * sm_scale, k and v (the new K/V column is emitted
-//      for the caller's cache update), logits over the valid int4 cache
-//      positions with the current token's int8 term inline, the softmax
-//      weights times the value scales quantized to int8 over T, the int8 x
-//      int4 weighted sum, and the per-(row, head) int8 quantization of the
-//      output for the o-projection;
+//   3. attention of the B decode rows, one block per (row, head): RoPE,
+//      per-(row, head) int8 quantization of q * sm_scale, k and v (the new
+//      K/V column is emitted for the caller's cache update), logits over the
+//      valid int4 cache positions with the current token's int8 term inline,
+//      the softmax weights times the value scales quantized to int8 over T,
+//      the int8 x int4 weighted sum, and the per-(row, head) int8
+//      quantization of the output for the o-projection;
+//   3a. (pf) RoPE and int8 q/k/v of the c chunk rows, one block per (row,
+//      head), emitting the chunk's K/V;
+//   3b. (pf) the chunk's attention, one block per (row, head): int8 x int4
+//      logits over the stream's working cache where its mask is set, an
+//      inline causal block over the chunk's own exact int8 keys (columns
+//      j <= i with amask[j] set), one softmax over both, the working-cache
+//      weights times their value scales quantized to int8, the f32 inline
+//      sum over the chunk's dequantized values, and the output's int8
+//      quantization for the o-projection;
 //   4. o-projection W4A8 with per-(row, head) activation scales, plus the
 //      f32 residual;
 //   5. RMSNorm 2 and chunk quantization (kernel 1);
@@ -33,12 +51,15 @@
 //      columns, so SiLU(gate) * up happens in its epilogue;
 //   7. chunk quantization of the SwiGLU output (kernel 1 without a norm);
 //   8. down W4A8 plus the f32 residual.
-// That is 8 launches a layer from C++, about 260 a token at 7B. The weights
-// are the per-layer (K/8, N) stacks the prefill reads, walked in place
-// through a host array of their device pointers (no second copy).
-// The int4 cache is (L, B, H, T, Dh/2) bytes, two biased head-dim values to
-// a byte (low nibble = even channel), with (L, B, H, T) bf16 scales: a key
-// row is 64 contiguous bytes, and a masked position is never loaded.
+// That is 8 launches a layer from C++ (10 with pf rows), about 260 a token
+// at 7B. No step mixes rows other than the chunk's own attention, so the
+// decode rows' outputs do not depend on whether pf rows ride along. The
+// weights are the per-layer (K/8, N) stacks the prefill reads, walked in
+// place through a host array of their device pointers (no second copy).
+// The int4 caches are (L, B, H, T, Dh/2) bytes (the working cache (L, H,
+// T2, Dh/2)), two biased head-dim values to a byte (low nibble = even
+// channel), with (L, B, H, T) bf16 scales: a key row is 64 contiguous bytes,
+// and a masked position is never loaded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,7 +180,7 @@ norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ norm,
 
 // ---------------------------------------------------------- 3. attention
 struct AttnArgs {
-  const float* qkv;            // (B, 3D) f32, this layer's fused projection
+  const float* qkv;            // (R, 3D) f32, this layer's fused projection
   const float* cos;            // (B, Dh)
   const float* sin;
   const uint8_t* k_cache;      // (L, B, H, T, Dh/2) biased nibbles
@@ -171,63 +192,51 @@ struct AttnArgs {
   float* knew_s;               // (L, B, H)
   int8_t* vnew;
   float* vnew_s;
-  int8_t* a8;                  // (B, D) attention output, int8 per (row, head)
-  float* ars;                  // (B, H)
+  int8_t* a8;                  // (R, D) attention output, int8 per (row, head)
+  float* ars;                  // (R, H)
   int layer, batch, heads, t_cap;
   float sm_scale;
 };
 
-// grid B * H, kDh threads; dynamic shared memory t_cap floats
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
-  extern __shared__ float w_s[];  // logits, then weights, then int8 weights
-  __shared__ float red[kAttnThreads / 32];
-  __shared__ float qraw[kDh], kraw[kDh];
-  __shared__ int q8s[kDh];
-  __shared__ float part[kAttnThreads / 32][kDh];
-  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads, d = threadIdx.x;
-  const int dim = p.heads * kDh, half = kDh / 2;
-  const float* row = p.qkv + (size_t)b * 3 * dim + h * kDh;
+// This thread's channel d of one (row, head): RoPE (HF half rotation, t *
+// cos + rotate_half(t) * sin) of q and k, then the per-(row, head) int8
+// quantization of q * sm_scale, k and v.
+struct RopeQuant {
+  float q8, qs, k8, ks, v8, vs;
+};
+
+__device__ __forceinline__ RopeQuant rope_quant(const float* row, int dim, const float* cos,
+                                                const float* sin, float sm_scale,
+                                                float* qraw, float* kraw, float* red) {
+  const int d = threadIdx.x, half = kDh / 2;
   const float q = row[d], k = row[dim + d], v = row[2 * dim + d];
   qraw[d] = q;
   kraw[d] = k;
   __syncthreads();
-  // RoPE, HF half rotation: t * cos + rotate_half(t) * sin
-  const float c = p.cos[b * kDh + d], s = p.sin[b * kDh + d];
+  const float c = cos[d], s = sin[d];
   const float qrot = d < half ? -qraw[d + half] : qraw[d - half];
   const float krot = d < half ? -kraw[d + half] : kraw[d - half];
   const float qr = __fadd_rn(__fmul_rn(q, c), __fmul_rn(qrot, s));
   const float kr = __fadd_rn(__fmul_rn(k, c), __fmul_rn(krot, s));
+  RopeQuant o;
+  const float qsc = qr * sm_scale;
+  o.qs = row_scale(block_reduce<true>(fabsf(qsc), red));
+  o.q8 = quant8(qsc, 1.f / o.qs);
+  o.ks = row_scale(block_reduce<true>(fabsf(kr), red));
+  o.k8 = quant8(kr, 1.f / o.ks);
+  o.vs = row_scale(block_reduce<true>(fabsf(v), red));
+  o.v8 = quant8(v, 1.f / o.vs);
+  return o;
+}
 
-  // per-(row, head) int8: q * sm_scale, k, v
-  const float qsc = qr * p.sm_scale;
-  const float qs = row_scale(block_reduce<true>(fabsf(qsc), red));
-  const float q8 = quant8(qsc, 1.f / qs);
-  const float ks = row_scale(block_reduce<true>(fabsf(kr), red));
-  const float k8 = quant8(kr, 1.f / ks);
-  const float vs = row_scale(block_reduce<true>(fabsf(v), red));
-  const float v8 = quant8(v, 1.f / vs);
-  const size_t lbh = ((size_t)p.layer * p.batch + b) * p.heads + h;
-  p.knew[lbh * kDh + d] = (int8_t)k8;
-  p.vnew[lbh * kDh + d] = (int8_t)v8;
-  if (d == 0) {
-    p.knew_s[lbh] = ks;
-    p.vnew_s[lbh] = vs;
-  }
-  q8s[d] = (int)q8;
-  const float vcur = v8 * vs;
-  // the current token's logit: the exact int8 dot, then its two scales
-  // (a sum of integers in f32 is exact in any order)
-  const float lcur = __fmul_rn(__fmul_rn(block_reduce<false>(q8 * k8, red), ks), qs);
-
-  // logits over the cache: one key row (64 bytes) per thread and position
-  const int t_cap = p.t_cap;
-  const uint8_t* kb = p.k_cache + lbh * t_cap * (kDh / 2);
-  const uint8_t* vb = p.v_cache + lbh * t_cap * (kDh / 2);
-  const __nv_bfloat16* ksb = p.k_scale + lbh * t_cap;
-  const __nv_bfloat16* vsb = p.v_scale + lbh * t_cap;
-  const int* mb = p.kv_mask + (size_t)b * t_cap;
-  float mx = lcur;
-  for (int t = d; t < t_cap; t += kAttnThreads) {
+// Logits of the int8 query q8s (kDh ints in shared memory, scale qs) over
+// an int4 cache of t_cap positions: w_s[t] = (dot * qs) * k_scale[t] where
+// mask[t] is set, else kNegInf; one key row (64 bytes) per thread and
+// position. Returns the max of mx and this thread's logits.
+__device__ __forceinline__ float cache_logits(const int* q8s, float qs, const uint8_t* kb,
+                                              const __nv_bfloat16* ksb, const int* mb,
+                                              int t_cap, float* w_s, float mx) {
+  for (int t = threadIdx.x; t < t_cap; t += kAttnThreads) {
     float logit = kNegInf;
     if (mb[t] != 0) {
       const uint4* key = reinterpret_cast<const uint4*>(kb + (size_t)t * (kDh / 2));
@@ -251,30 +260,37 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
     w_s[t] = logit;
     mx = fmaxf(mx, logit);
   }
-  mx = block_reduce<true>(mx, red);
+  return mx;
+}
 
-  float sum = 0.f, wamax = 0.f;
-  for (int t = d; t < t_cap; t += kAttnThreads) {
+// w_s[t] = exp(w_s[t] - mx) * v_scale[t], the softmax weights times the
+// value scales; adds this thread's share of the exp sum to *sum and of the
+// weights' max to *wamax.
+__device__ __forceinline__ void cache_weights(float* w_s, const __nv_bfloat16* vsb,
+                                              int t_cap, float mx, float* sum,
+                                              float* wamax) {
+  for (int t = threadIdx.x; t < t_cap; t += kAttnThreads) {
     const float e = expf(w_s[t] - mx);
-    sum += e;
-    const float wv = e * __bfloat162float(vsb[t]);  // weights times value scales
+    *sum += e;
+    const float wv = e * __bfloat162float(vsb[t]);
     w_s[t] = wv;
-    wamax = fmaxf(wamax, wv);
+    *wamax = fmaxf(*wamax, wv);
   }
-  const float wc = expf(lcur - mx);
-  const float denom = block_reduce<false>(sum, red) + wc;
-  const float wrs = row_scale(block_reduce<true>(wamax, red));
-  const float winv = 1.f / wrs;
-  for (int t = d; t < t_cap; t += kAttnThreads) w_s[t] = quant8(w_s[t], winv);
-  __syncthreads();
+}
 
-  // ov[c] = sum_t w8[t] * v[t, c]: warps split T, a lane owns 4 channels
+// Channel threadIdx.x of sum_t w8[t] * v[t, c] over an int4 value cache,
+// with the int8 weights w8 in w_s (visible to the block): warps split T, a
+// lane owns 4 channels, and the warps' partial sums meet in `part`.
+__device__ __forceinline__ float cache_weighted_sum(const float* w_s, const uint8_t* vb,
+                                                    int t_cap,
+                                                    float (*part)[kDh]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float a[4] = {0.f, 0.f, 0.f, 0.f};
   for (int t = warp; t < t_cap; t += kAttnThreads / 32) {
     const float wt = w_s[t];
     if (wt == 0.f) continue;
-    const uint32_t pair = *reinterpret_cast<const uint16_t*>(vb + (size_t)t * (kDh / 2) + 2 * lane);
+    const uint32_t pair =
+        *reinterpret_cast<const uint16_t*>(vb + (size_t)t * (kDh / 2) + 2 * lane);
 #pragma unroll
     for (int j = 0; j < 4; ++j) a[j] += wt * (float)((int)((pair >> (4 * j)) & 0xFu) - 8);
   }
@@ -283,13 +299,163 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
   __syncthreads();
   float ov = 0.f;
 #pragma unroll
-  for (int w = 0; w < kAttnThreads / 32; ++w) ov += part[w][d];
+  for (int w = 0; w < kAttnThreads / 32; ++w) ov += part[w][threadIdx.x];
+  return ov;
+}
+
+// grid B * H, kDh threads; dynamic shared memory t_cap floats
+__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
+  extern __shared__ float w_s[];  // logits, then weights, then int8 weights
+  __shared__ float red[kAttnThreads / 32];
+  __shared__ float qraw[kDh], kraw[kDh];
+  __shared__ int q8s[kDh];
+  __shared__ float part[kAttnThreads / 32][kDh];
+  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads, d = threadIdx.x;
+  const int dim = p.heads * kDh;
+  const RopeQuant r = rope_quant(p.qkv + (size_t)b * 3 * dim + h * kDh, dim,
+                                 p.cos + b * kDh, p.sin + b * kDh, p.sm_scale, qraw, kraw,
+                                 red);
+  const size_t lbh = ((size_t)p.layer * p.batch + b) * p.heads + h;
+  p.knew[lbh * kDh + d] = (int8_t)r.k8;
+  p.vnew[lbh * kDh + d] = (int8_t)r.v8;
+  if (d == 0) {
+    p.knew_s[lbh] = r.ks;
+    p.vnew_s[lbh] = r.vs;
+  }
+  q8s[d] = (int)r.q8;
+  const float vcur = r.v8 * r.vs;
+  // the current token's logit: the exact int8 dot, then its two scales
+  // (a sum of integers in f32 is exact in any order)
+  const float lcur = __fmul_rn(__fmul_rn(block_reduce<false>(r.q8 * r.k8, red), r.ks), r.qs);
+
+  const int t_cap = p.t_cap;
+  const float mx = block_reduce<true>(
+      cache_logits(q8s, r.qs, p.k_cache + lbh * t_cap * (kDh / 2), p.k_scale + lbh * t_cap,
+                   p.kv_mask + (size_t)b * t_cap, t_cap, w_s, lcur),
+      red);
+  float sum = 0.f, wamax = 0.f;
+  cache_weights(w_s, p.v_scale + lbh * t_cap, t_cap, mx, &sum, &wamax);
+  const float wc = expf(lcur - mx);
+  const float denom = block_reduce<false>(sum, red) + wc;
+  const float wrs = row_scale(block_reduce<true>(wamax, red));
+  const float winv = 1.f / wrs;
+  for (int t = d; t < t_cap; t += kAttnThreads) w_s[t] = quant8(w_s[t], winv);
+  __syncthreads();
+  const float ov = cache_weighted_sum(w_s, p.v_cache + lbh * t_cap * (kDh / 2), t_cap, part);
   const float attn = __fadd_rn(__fmul_rn(ov, wrs), __fmul_rn(wc, vcur)) / denom;
 
   // int8 per (row, head) for the o-projection
   const float as = row_scale(block_reduce<true>(fabsf(attn), red));
   p.a8[(size_t)b * dim + h * kDh + d] = (int8_t)quant8(attn, 1.f / as);
   if (d == 0) p.ars[(size_t)b * p.heads + h] = as;
+}
+
+// ------------------------------------------------ 3a-b. the pf chunk's rows
+struct ChunkArgs {
+  const float* qkv;            // (R, 3D); the chunk's rows start at row `batch`
+  const float* cos;            // (c, Dh) at the chunk's positions
+  const float* sin;
+  const int* amask;            // (c,) the chunk's real columns
+  const uint8_t* k_work;       // (L, H, T2, Dh/2) the stream's working cache
+  const __nv_bfloat16* k_work_s;  // (L, H, T2)
+  const uint8_t* v_work;
+  const __nv_bfloat16* v_work_s;
+  const int* work_mask;        // (T2,) the working-cache columns the chunk sees
+  int8_t* knew;                // (L, c, H, Dh) the chunk's K/V
+  float* knew_s;               // (L, c, H)
+  int8_t* vnew;
+  float* vnew_s;
+  int8_t* a8;                  // (R, D): 3a leaves the chunk's int8 q here,
+  float* ars;                  // (R, H)   3b overwrites it with the output
+  int layer, batch, chunk, heads, t2;
+  float sm_scale;
+};
+
+// 3a. grid c * H, kDh threads: the chunk rows' RoPE and int8 q/k/v
+__global__ void __launch_bounds__(kAttnThreads) chunk_rope_quant_kernel(ChunkArgs p) {
+  __shared__ float red[kAttnThreads / 32];
+  __shared__ float qraw[kDh], kraw[kDh];
+  const int i = blockIdx.x / p.heads, h = blockIdx.x % p.heads, d = threadIdx.x;
+  const int dim = p.heads * kDh, row = p.batch + i;
+  const RopeQuant r = rope_quant(p.qkv + (size_t)row * 3 * dim + h * kDh, dim,
+                                 p.cos + i * kDh, p.sin + i * kDh, p.sm_scale, qraw, kraw,
+                                 red);
+  const size_t lih = ((size_t)p.layer * p.chunk + i) * p.heads + h;
+  p.knew[lih * kDh + d] = (int8_t)r.k8;
+  p.vnew[lih * kDh + d] = (int8_t)r.v8;
+  p.a8[(size_t)row * dim + h * kDh + d] = (int8_t)r.q8;
+  if (d == 0) {
+    p.knew_s[lih] = r.ks;
+    p.vnew_s[lih] = r.vs;
+    p.ars[(size_t)row * p.heads + h] = r.qs;
+  }
+}
+
+// 3b. grid c * H, kDh threads; dynamic shared memory T2 + c floats
+__global__ void __launch_bounds__(kAttnThreads) chunk_attention_kernel(ChunkArgs p) {
+  extern __shared__ float w_s[];  // T2 working-cache weights, then c inline ones
+  __shared__ float red[kAttnThreads / 32];
+  __shared__ int q8s[kDh];
+  __shared__ float part[kAttnThreads / 32][kDh];
+  const int i = blockIdx.x / p.heads, h = blockIdx.x % p.heads, d = threadIdx.x;
+  const int dim = p.heads * kDh, row = p.batch + i, t2 = p.t2, c = p.chunk;
+  q8s[d] = p.a8[(size_t)row * dim + h * kDh + d];
+  const float qs = p.ars[(size_t)row * p.heads + h];
+  __syncthreads();  // q8s complete
+  const size_t lh = (size_t)p.layer * p.heads + h;
+  const size_t col0 = (size_t)p.layer * c * p.heads + h;  // (layer, column 0, h)
+  float mx = cache_logits(q8s, qs, p.k_work + lh * t2 * (kDh / 2), p.k_work_s + lh * t2,
+                          p.work_mask, t2, w_s, kNegInf);
+  // the inline causal block: the exact int8 dot with column j's key, then
+  // its scale and the query's, as the decode rows' current-token term
+  float* wi_s = w_s + t2;
+  for (int j = d; j < c; j += kAttnThreads) {
+    float logit = kNegInf;
+    if (j <= i && p.amask[j] != 0) {
+      const size_t cj = col0 + (size_t)j * p.heads;
+      const int4* key = reinterpret_cast<const int4*>(p.knew + cj * kDh);
+      int dot = 0;
+#pragma unroll
+      for (int w16 = 0; w16 < kDh / 16; ++w16) {
+        const int4 wv = key[w16];
+        const int words[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int byte = 0; byte < 4; ++byte)
+            dot += q8s[w16 * 16 + k * 4 + byte] * (int)(int8_t)(words[k] >> (8 * byte));
+      }
+      logit = __fmul_rn(__fmul_rn((float)dot, p.knew_s[cj]), qs);
+    }
+    wi_s[j] = logit;
+    mx = fmaxf(mx, logit);
+  }
+  mx = block_reduce<true>(mx, red);
+  float sum = 0.f, wamax = 0.f, sum_i = 0.f;
+  cache_weights(w_s, p.v_work_s + lh * t2, t2, mx, &sum, &wamax);
+  for (int j = d; j < c; j += kAttnThreads) {
+    const float e = expf(wi_s[j] - mx);
+    wi_s[j] = e;
+    sum_i += e;
+  }
+  const float denom = block_reduce<false>(sum, red) + block_reduce<false>(sum_i, red);
+  const float wrs = row_scale(block_reduce<true>(wamax, red));
+  const float winv = 1.f / wrs;
+  for (int t = d; t < t2; t += kAttnThreads) w_s[t] = quant8(w_s[t], winv);
+  __syncthreads();
+  const float ov = cache_weighted_sum(w_s, p.v_work + lh * t2 * (kDh / 2), t2, part);
+  // the inline sum over the chunk's dequantized values, in column order
+  float ovi = 0.f;
+  for (int j = 0; j < c; ++j) {
+    const float wj = wi_s[j];
+    if (wj == 0.f) continue;
+    const size_t cj = col0 + (size_t)j * p.heads;
+    ovi += wj * ((float)p.vnew[cj * kDh + d] * p.vnew_s[cj]);
+  }
+  const float attn = __fadd_rn(__fmul_rn(ov, wrs), ovi) / denom;
+  const float as = row_scale(block_reduce<true>(fabsf(attn), red));
+  p.a8[(size_t)row * dim + h * kDh + d] = (int8_t)quant8(attn, 1.f / as);
+  if (d == 0) p.ars[(size_t)row * p.heads + h] = as;
 }
 
 cudaError_t norm_quant(const float* x, const float* norm, void* q, void* rs, int rows,
@@ -318,25 +484,48 @@ cudaError_t norm_quant(const float* x, const float* norm, void* q, void* rs, int
                             eps);
 }
 
+// Sets a kernel's dynamic shared memory limit once it exceeds the default.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* set) {
+  if (bytes <= *set) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) *set = bytes;
+  return e;
+}
+
 }  // namespace
 
 // Layer-pointer slots in the host array `layers` (8 * L device pointers):
 // slot * L + layer, slot 0/1 qkv w/scale, 2/3 o, 4/5 gate_up, 6/7 down.
 // x_in (B, D) bf16; norms (L, 2, D) f32; caches (L, B, H, T, Dh/2) uint8 and
 // (L, B, H, T) bf16 scales; kv_mask (B, T) int32; cos/sin (B, Dh) f32.
-// Scratch: x_res, x2 (B, D) f32; hq (B, max(D, F)) int8; hrs (B, max(D, F)
-// / ck) f32; qkv (B, 3D) f32; a8 (B, D) int8; ars (B, H) f32; mbuf (B, F)
-// f32. Outputs: x_out (B, D) bf16 (before the final norm); knew/vnew
-// (L, B, H, Dh) int8; knew_s/vnew_s (L, B, H) f32.
+// Scratch for R = B + chunk rows: x_res, x2 (R, D) f32; hq (R, max(D, F))
+// int8; hrs (R, max(D, F) / ck) f32; qkv (R, 3D) f32; a8 (R, D) int8; ars
+// (R, H) f32; mbuf (R, F) f32. Outputs: x_out (B, D) bf16 (before the final
+// norm); knew/vnew (L, B, H, Dh) int8; knew_s/vnew_s (L, B, H) f32.
+// pf rows (chunk > 0, else these pointers are null): x_pf (c, D) bf16;
+// cos_pf/sin_pf (c, Dh) f32; amask (c,) int32; the working cache k_work/
+// v_work (L, H, T2, Dh/2) uint8 with k_work_s/v_work_s (L, H, T2) bf16;
+// work_mask (T2,) int32. Their outputs: x_pf_out (c, D) bf16; knew_pf/
+// vnew_pf (L, c, H, Dh) int8; knew_pf_s/vnew_pf_s (L, c, H) f32.
 extern "C" int mmor_mega_decode(
     const void* x_in, const void* layers_host, const void* norms, const void* k_cache,
     const void* k_scale, const void* v_cache, const void* v_scale, const void* kv_mask,
     const void* cos, const void* sin, void* x_res, void* x2, void* hq, void* hrs,
     void* qkv, void* a8, void* ars, void* mbuf, void* x_out, void* knew, void* knew_s,
-    void* vnew, void* vnew_s, int n_layers, int batch, int dim, int heads, int ffn,
-    int t_cap, int ck, float eps, float sm_scale, void* stream) {
+    void* vnew, void* vnew_s, const void* x_pf, const void* cos_pf, const void* sin_pf,
+    const void* amask, const void* k_work, const void* k_work_s, const void* v_work,
+    const void* v_work_s, const void* work_mask, void* x_pf_out, void* knew_pf,
+    void* knew_pf_s, void* vnew_pf, void* vnew_pf_s, int n_layers, int batch, int dim,
+    int heads, int ffn, int t_cap, int ck, int chunk, int t2, float eps, float sm_scale,
+    void* stream) {
   if (dim != heads * kDh || ck % 256 || ck > kQuantThreads * kMaxChunkPerThread ||
-      dim / ck > kMaxNormChunks || dim % ck || ffn % ck)
+      dim / ck > kMaxNormChunks || dim % ck || ffn % ck || chunk < 0)
+    return (int)cudaErrorInvalidValue;
+  if (chunk > 0 && (t2 < 1 || !x_pf || !cos_pf || !sin_pf || !amask || !k_work ||
+                    !k_work_s || !v_work || !v_work_s || !work_mask || !x_pf_out ||
+                    !knew_pf || !knew_pf_s || !vnew_pf || !vnew_pf_s))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* const* lp = static_cast<const void* const*>(layers_host);
@@ -346,32 +535,38 @@ extern "C" int mmor_mega_decode(
   const float* nf = static_cast<const float*>(norms);
   const uint32_t* hq32 = static_cast<const uint32_t*>(hq);
   const float* hrsf = static_cast<const float*>(hrs);
-  const int count = batch * dim;
+  const int rows = batch + chunk;
+  const int count = batch * dim, count_pf = chunk * dim;
   const size_t attn_smem = (size_t)t_cap * sizeof(float);
-  static size_t attn_smem_set = 48 * 1024;
+  const size_t chunk_smem = (size_t)(t2 + chunk) * sizeof(float);
+  static size_t attn_smem_set = 48 * 1024, chunk_smem_set = 48 * 1024;
   cudaError_t e;
-  if (attn_smem > attn_smem_set) {
-    e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)attn_smem);
-    if (e != cudaSuccess) return (int)e;
-    attn_smem_set = attn_smem;
-  }
+  if ((e = allow_smem(attention_kernel, attn_smem, &attn_smem_set)) != cudaSuccess)
+    return (int)e;
+  if (chunk > 0 &&
+      (e = allow_smem(chunk_attention_kernel, chunk_smem, &chunk_smem_set)) != cudaSuccess)
+    return (int)e;
   widen_kernel<<<(count + 255) / 256, 256, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x_in), xr, count);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (chunk > 0) {
+    widen_kernel<<<(count_pf + 255) / 256, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x_pf), xr + count, count_pf);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
 
   for (int l = 0; l < n_layers; ++l) {
     const float* norm1 = nf + (size_t)l * 2 * dim;
     const float* norm2 = norm1 + dim;
     // 1-2: attention norm, chunk quantization, fused qkv
-    if ((e = norm_quant(xr, norm1, hq, hrs, batch, dim, ck, eps, s)) != cudaSuccess)
+    if ((e = norm_quant(xr, norm1, hq, hrs, rows, dim, ck, eps, s)) != cudaSuccess)
       return (int)e;
     w4a8::SkinnyArgs pq{hq32, hrsf, static_cast<const uint32_t*>(slot(0, l)),
                         static_cast<const float*>(slot(1, l)), nullptr, qkv,
-                        batch, dim, 3 * dim, ck, ck};
+                        rows, dim, 3 * dim, ck, ck};
     if ((e = w4a8::launch_skinny<w4a8::kStoreF32, float>(pq, s)) != cudaSuccess)
       return (int)e;
-    // 3: attention
+    // 3: attention of the decode rows
     AttnArgs pa{static_cast<const float*>(qkv), static_cast<const float*>(cos),
                 static_cast<const float*>(sin), static_cast<const uint8_t*>(k_cache),
                 static_cast<const __nv_bfloat16*>(k_scale),
@@ -383,32 +578,53 @@ extern "C" int mmor_mega_decode(
                 static_cast<float*>(ars), l, batch, heads, t_cap, sm_scale};
     attention_kernel<<<batch * heads, kAttnThreads, attn_smem, s>>>(pa);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    // 3a-b: the chunk rows' q/k/v, then their attention
+    if (chunk > 0) {
+      ChunkArgs pc{static_cast<const float*>(qkv), static_cast<const float*>(cos_pf),
+                   static_cast<const float*>(sin_pf), static_cast<const int*>(amask),
+                   static_cast<const uint8_t*>(k_work),
+                   static_cast<const __nv_bfloat16*>(k_work_s),
+                   static_cast<const uint8_t*>(v_work),
+                   static_cast<const __nv_bfloat16*>(v_work_s),
+                   static_cast<const int*>(work_mask), static_cast<int8_t*>(knew_pf),
+                   static_cast<float*>(knew_pf_s), static_cast<int8_t*>(vnew_pf),
+                   static_cast<float*>(vnew_pf_s), static_cast<int8_t*>(a8),
+                   static_cast<float*>(ars), l, batch, chunk, heads, t2, sm_scale};
+      chunk_rope_quant_kernel<<<chunk * heads, kAttnThreads, 0, s>>>(pc);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      chunk_attention_kernel<<<chunk * heads, kAttnThreads, chunk_smem, s>>>(pc);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    }
     // 4: o-projection (activation scales per (row, head)) + residual
     w4a8::SkinnyArgs po{static_cast<const uint32_t*>(a8), static_cast<const float*>(ars),
                         static_cast<const uint32_t*>(slot(2, l)),
-                        static_cast<const float*>(slot(3, l)), xr, x2, batch, dim, dim,
+                        static_cast<const float*>(slot(3, l)), xr, x2, rows, dim, dim,
                         ck, kDh};
     if ((e = w4a8::launch_skinny<w4a8::kResidF32, float>(po, s)) != cudaSuccess)
       return (int)e;
     // 5-6: MLP norm, chunk quantization, gate_up with SwiGLU
-    if ((e = norm_quant(x2f, norm2, hq, hrs, batch, dim, ck, eps, s)) != cudaSuccess)
+    if ((e = norm_quant(x2f, norm2, hq, hrs, rows, dim, ck, eps, s)) != cudaSuccess)
       return (int)e;
     w4a8::SkinnyArgs pg{hq32, hrsf, static_cast<const uint32_t*>(slot(4, l)),
                         static_cast<const float*>(slot(5, l)), nullptr, mbuf,
-                        batch, dim, 2 * ffn, ck, ck};
+                        rows, dim, 2 * ffn, ck, ck};
     if ((e = w4a8::launch_skinny<w4a8::kSwiGLU, float>(pg, s)) != cudaSuccess)
       return (int)e;
     // 7-8: chunk quantization of the SwiGLU output, down + residual
-    if ((e = norm_quant(static_cast<const float*>(mbuf), nullptr, hq, hrs, batch, ffn,
+    if ((e = norm_quant(static_cast<const float*>(mbuf), nullptr, hq, hrs, rows, ffn,
                         ck, eps, s)) != cudaSuccess)
       return (int)e;
     w4a8::SkinnyArgs pd{hq32, hrsf, static_cast<const uint32_t*>(slot(6, l)),
-                        static_cast<const float*>(slot(7, l)), x2f, xr, batch, ffn, dim,
+                        static_cast<const float*>(slot(7, l)), x2f, xr, rows, ffn, dim,
                         ck, ck};
     if ((e = w4a8::launch_skinny<w4a8::kResidF32, float>(pd, s)) != cudaSuccess)
       return (int)e;
   }
   narrow_kernel<<<(count + 255) / 256, 256, 0, s>>>(xr, static_cast<__nv_bfloat16*>(x_out),
                                                     count);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (chunk > 0)
+    narrow_kernel<<<(count_pf + 255) / 256, 256, 0, s>>>(
+        xr + count, static_cast<__nv_bfloat16*>(x_pf_out), count_pf);
   return (int)cudaGetLastError();
 }

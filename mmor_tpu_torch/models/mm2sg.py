@@ -11,12 +11,17 @@ or through the decode megakernel:
 - ``make_prefill`` fills preallocated capacity cache buffers in place and
   ``generate_stepwise`` decodes greedily (per-op steps, or K5 steps under
   ``mega_decode``), handing the buffers back for the next batch of the same
-  shape.
+  shape;
+- ``generate_overlapped`` serves a sequence of same-shape batches with each
+  later batch's prefill carried by the previous batch's K5 steps
+  (``make_encode`` gives the prompts, ``ops/mega_overlap.py`` the rest).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mmor_tpu_torch.sg.prompts import IGNORE_INDEX, IMAGE_TOKEN_INDEX
@@ -220,3 +225,127 @@ def generate_stepwise(model: MM2SG, batch: dict, *, max_cache_len: int,
     if final["kv_mask"].shape[0] != batch["input_ids"].shape[0]:
         return tokens, None
     return tokens, {k: final[k] for k in cache_buffers}
+
+
+def make_encode(model: MM2SG):
+    """Prompt encode (``mm2sg.py:434-463``): encode(batch) -> (embeds
+    (B, T_out, D) bf16, mask (B, T_out)), the prefill without the LLaMA
+    forward; raw views are preprocessed on the device."""
+
+    @torch.no_grad()
+    def encode(batch):
+        batch = _images_from_raw(model, batch)
+        embeds, mask, _ = model.encode_prompt(
+            batch["input_ids"], batch["attention_mask"], batch["images"],
+            batch["view_mask"], pc_feature=batch.get("pc_feature"),
+            audio_embedding=batch.get("audio_embedding"), segmasks=batch.get("segmasks"),
+            pc_points=batch.get("pc_points"), pc_valid=batch.get("pc_valid"))
+        return embeds.to(torch.bfloat16), mask
+
+    return encode
+
+
+@torch.no_grad()
+def generate_overlapped(model: MM2SG, batches: list[dict], *, max_cache_len: int,
+                        max_new_tokens: int, eos_token_id: int, chunk: int = 128,
+                        engine_cache: dict | None = None) -> list[np.ndarray]:
+    """Serve a sequence of same-shape batches with each later batch's LLaMA
+    prefill piggybacked on the previous batch's decode steps
+    (``mm2sg.py:466-591``). Only batch 0 gets its own prefill. While batch N
+    decodes, its first B * nc steps each carry ``chunk`` prompt tokens of
+    one stream of batch N+1 (stream-major, nc chunks a stream) through K5;
+    after a stream's last chunk its working cache is flushed and the hidden
+    state of its last prompt token kept; at the boundary the prefill buffer
+    becomes batch N+1's decode cache and those hidden states give its first
+    tokens. Runs where the model and the batches' tensors are (the card, or
+    the plain versions on the CPU). ``engine_cache`` keeps the server and
+    the cache, working and prefill buffers across calls. Returns one
+    (B, max_new_tokens) int32 array a batch, each row EOS-filled after its
+    first EOS (no compaction)."""
+    from mmor_tpu_torch.ops.mega_overlap import (
+        OverlapServer,
+        alloc_pf_full,
+        alloc_pf_work,
+        flush_pf_work,
+    )
+
+    cfg = model.cfg.llama
+    if not cfg.mega_decode:
+        raise ValueError("overlapped serving rides the megakernel (mega_decode)")
+    b, t_in = batches[0]["input_ids"].shape
+    if any(tuple(bt["input_ids"].shape) != (b, t_in) for bt in batches[1:]):
+        raise ValueError("batches must share shape")
+    t_out = t_in + model.cfg.num_multimodal_tokens - 1
+    nc = -(-t_out // chunk)
+    while (nc * chunk) % 256:  # the int4 working cache's 256-column granule
+        nc += 1
+    t2 = nc * chunk
+    if nc * b > max_new_tokens - 1:
+        raise ValueError(
+            f"piggyback needs {nc * b} decode steps for {b} streams x "
+            f"{nc} chunks but only {max_new_tokens - 1} are available")
+    if t2 > max_cache_len:
+        raise ValueError(f"working cache of {t2} columns exceeds the cache capacity "
+                         f"{max_cache_len}")
+    device = batches[0]["input_ids"].device
+
+    ec = engine_cache if engine_cache is not None else {}
+    if "server" not in ec:
+        ec["encode"] = make_encode(model)
+        ec["prefill"] = make_prefill(model, max_cache_len=max_cache_len)
+        ec["server"] = OverlapServer(cfg, model.language_model, batch=b,
+                                     t_cap=max_cache_len, t2=t2, chunk=chunk)
+    encode, prefill, server = ec["encode"], ec["prefill"], ec["server"]
+    if (server.t2, server.batch, server.chunk) != (t2, b, chunk):
+        raise ValueError("engine_cache holds a server of another shape")
+
+    bufs = ec.pop("bufs", None) or alloc_cache_buffers(model.cfg, b, max_cache_len, device)
+    logits, cache = prefill(batches[0], bufs)
+    tok = logits[:, -1].argmax(dim=-1).to(torch.int32)
+    # the flushes leave the working cache zeroed and overwrite every row of
+    # the full buffer before a handoff reads it: both are reused as they are
+    work = ec.pop("work", None) or alloc_pf_work(cfg, t2, device)
+    full = ec.pop("full", None) or alloc_pf_full(cfg, b, t2, device)
+    # the last prompt token's chunk and row. The JAX package takes row
+    # t_out - 1 - (nc - 1) * chunk of the last chunk, which is that token
+    # only when no chunk was added for the 256-column granule
+    j_last, last_row = divmod(t_out - 1, chunk)
+
+    outs = []
+    for bi in range(len(batches)):
+        nxt = None
+        if bi + 1 < len(batches):
+            embeds, mask = encode(batches[bi + 1])
+            embeds = F.pad(embeds, (0, 0, 0, t2 - t_out))
+            mask = F.pad(mask.to(torch.int32), (0, t2 - t_out))
+            pos = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0).to(torch.int32)
+            nxt = (embeds, mask, pos)
+        toks, hiddens = [tok], []
+        for i in range(1, max_new_tokens):
+            widx, j = divmod(i - 1, nc)
+            if nxt is not None and widx < b:
+                span = slice(j * chunk, (j + 1) * chunk)
+                ck = dict(x=nxt[0][widx, span], pos=nxt[2][widx, span],
+                          amask=nxt[1][widx, span], stream_amask=nxt[1][widx],
+                          wp=j * chunk)
+                tok, cache, work, x_pf = server.step_pf(cache, tok[:, None], work, ck)
+                if j == j_last:
+                    hiddens.append(x_pf[last_row])
+                if j == nc - 1:
+                    full, work = flush_pf_work(full, work, widx)
+            else:
+                tok, cache = server.step_plain(cache, tok[:, None])
+            toks.append(tok)
+        out = torch.stack(toks, dim=1).cpu().numpy()
+        if eos_token_id >= 0:
+            for r in range(b):
+                hits = np.nonzero(out[r] == eos_token_id)[0]
+                if hits.size:
+                    out[r, hits[0]:] = eos_token_id
+        outs.append(out)
+        if nxt is not None:
+            cache, tok = server.handoff(cache, full, nxt[1][:, :t_out], torch.stack(hiddens))
+    if engine_cache is not None:
+        ec["bufs"] = {k: cache[k] for k in ("k", "k_s", "v", "v_s")}
+        ec["work"], ec["full"] = work, full
+    return outs

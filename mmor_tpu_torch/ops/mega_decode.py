@@ -1,13 +1,20 @@
 """Decode megakernel: every decoder layer of one decode position in one call.
 
 Counterpart of ``mmor_tpu/ops/mega_decode.py`` for int4 weights and an int4
-KV cache (``wbits = kvbits = 4``), without the piggyback-prefill rows:
+KV cache (``wbits = kvbits = 4``), with its piggyback-prefill (``pf``) rows:
 
 - ``mega_decode_layers`` is K5. On the card one C entry point
   (``csrc/mega_decode.cu``) runs all L layers, enqueueing a fixed sequence of
   hand-written kernels per layer; on the CPU ``mega_decode_layers_plain`` runs
   the same arithmetic chain, that of ``mega_decode_layers_reference``
   (``mega_decode.py:1386-1589``).
+- ``pf`` carries c prompt rows of one stream of the next batch through every
+  matmul of the step, after the B decode rows (the TPU layout's gap rows
+  exist for its sublane tiling and have no counterpart here), plus a causal
+  attention of the chunk against that stream's working cache
+  (``ops/mega_overlap.py``). The chunk width and the working cache's
+  capacity T2 are the shapes of the ``pf`` tensors; the TPU tiling
+  (``MegaGeometry``) has no counterpart.
 - The weights are the per-layer fused ``qkv_proj`` / ``o_proj`` /
   ``gate_up_proj`` / ``down_proj`` (K/8, N) packed stacks the prefill reads
   (``MegaWeights``), walked in place. The TPU package's tapes
@@ -204,91 +211,163 @@ def _attention_plain(q8, qs, k8, ks_cur, vcur, k_int, ks, v_int, vs, mask):
     return (ov + wc * vcur) / denom
 
 
+def _chunk_attention_plain(q8, qs, k8, ks, vcur, k_int, k_s, v_int, v_s, mask, amask):
+    """The pf chunk's attention, ``mega_decode.py:1536-1560``: int8 queries
+    (c, H, dh) with scales qs (c, H, 1) against the stream's working cache
+    (int4 values (H, T2, dh), scales (H, T2)) where ``mask`` (T2,) is set,
+    plus an inline causal block over the chunk's own columns j <= i with
+    ``amask[j]`` set: its logits are the exact int8 dots q8_i . k8_j times
+    ks_j and qs_i (as the decode rows' current-token term), its values the
+    exact dequantized vcur (c, H, dh). One softmax over both parts; the
+    working-cache weights times the value scales quantize to int8 per (row,
+    head), the inline weights stay f32. Returns (c, H, dh) f32."""
+    c = q8.shape[0]
+    lg = torch.einsum("chd,htd->cht", q8.double(), k_int.double()).float()
+    lg = torch.where(mask[None, None, :] != 0, lg * qs * k_s[None], NEG_INF)
+    dot = torch.einsum("ihd,jhd->ihj", q8.double(), k8.double()).float()
+    li = dot * ks[:, :, 0].t()[None] * qs
+    j = torch.arange(c, device=q8.device)
+    visible = (j[None, :] <= j[:, None]) & (amask[None, :] != 0)  # (i, j)
+    li = torch.where(visible[:, None, :], li, NEG_INF)
+    mmax = torch.maximum(lg.amax(dim=-1, keepdim=True), li.amax(dim=-1, keepdim=True))
+    w = torch.exp(lg - mmax)
+    wi = torch.exp(li - mmax)
+    denom = w.sum(dim=-1, keepdim=True) + wi.sum(dim=-1, keepdim=True)
+    w8, wrs = _quant_rows_f32(w * v_s[None])
+    ov = torch.einsum("cht,htd->chd", w8.double(), v_int.double()).float() * wrs
+    ovi = torch.einsum("ihj,jhd->ihd", wi, vcur)
+    return (ov + ovi) / denom
+
+
 def mega_decode_layers_plain(x: torch.Tensor, weights: MegaWeights, cache: dict,
                              cos: torch.Tensor, sin: torch.Tensor, *,
-                             eps: float = 1e-5, sm_scale: float | None = None):
+                             eps: float = 1e-5, sm_scale: float | None = None,
+                             pf: dict | None = None):
     """Plain PyTorch K5: the arithmetic chain of
-    ``mega_decode_layers_reference`` (``pf=None``, ``wbits = kvbits = 4``)
-    with the kernel's fold order. Weights and the cache dequantize one layer
-    at a time: the whole 7B stack in f32 would take ~26 GB
+    ``mega_decode_layers_reference`` (``wbits = kvbits = 4``) with the
+    kernel's fold order. Weights and the cache dequantize one layer at a
+    time: the whole 7B stack in f32 would take ~26 GB
     (``mega_decode.py:1424-1427``). Returns (x_out (B, D) bf16, knew
-    (L, B, H, dh) int8, knew_s (L, B, H) f32, vnew, vnew_s)."""
+    (L, B, H, dh) int8, knew_s (L, B, H) f32, vnew, vnew_s).
+
+    ``pf`` (the reference's dict): x (c, D) bf16 chunk embeddings, cos/sin
+    (c, dh) at the chunk's positions, amask (c,) int32, mask (T2,) int32 (the
+    working-cache columns the chunk sees), and the stream's working cache k/v
+    (L, H, T2, dh/2) uint8 with k_s/v_s (L, H, T2) bf16. The chunk rows ride
+    the row-wise chain after the decode rows (``_chunk_attention_plain``), so
+    the decode rows' outputs do not change; a sixth element
+    dict(x (c, D) bf16, knew/vnew (L, c, H, dh) int8, knew_s/vnew_s (L, c, H)
+    f32) carries the chunk's."""
     b, dim = x.shape
     n_layers, _, heads, t_cap, _ = cache["k"].shape
     dh = dim // heads
     ck, half = weights.group, dh // 2
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(dh)
-    cosr, sinr = cos.float()[:, None, :], sin.float()[:, None, :]
+    x, cos, sin = x.float(), cos.float(), sin.float()
+    if pf is not None:
+        x = torch.cat([x, pf["x"].float()])
+        cos = torch.cat([cos, pf["cos"].float()])
+        sin = torch.cat([sin, pf["sin"].float()])
+    rows = x.shape[0]
+    cosr, sinr = cos[:, None, :], sin[:, None, :]
 
-    def rope(t):  # (B, H, dh)
+    def rope(t):  # (rows, H, dh)
         return t * cosr + torch.cat([-t[..., half:], t[..., :half]], dim=-1) * sinr
 
     def chunk_quant(h):
-        q, rs = _quant_rows_f32(h.reshape(b, -1, ck))
-        return q.reshape(b, -1), rs[..., 0]
+        q, rs = _quant_rows_f32(h.reshape(rows, -1, ck))
+        return q.reshape(rows, -1), rs[..., 0]
 
-    x = x.float()
     knews, knew_ss, vnews, vnew_ss = [], [], [], []
     for li in range(n_layers):
         wq, sq, wo, so, wg, sg, wd, sd = (slot[li] for slot in weights.layers)
         h = _rmsnorm(x, weights.norms[li, 0], eps)
-        qkv = _w4a8_chunks(*chunk_quant(h), wq, sq, ck, ck).reshape(b, 3, heads, dh)
+        qkv = _w4a8_chunks(*chunk_quant(h), wq, sq, ck, ck).reshape(rows, 3, heads, dh)
         q, k, v = rope(qkv[:, 0]), rope(qkv[:, 1]), qkv[:, 2]
         q8, qs = _quant_rows_f32(q * sm_scale)
         k8, ks = _quant_rows_f32(k)
         v8, vs = _quant_rows_f32(v)
+        vcur = v8 * vs
         knews.append(k8)
         knew_ss.append(ks[..., 0])
         vnews.append(v8)
         vnew_ss.append(vs[..., 0])
         attn = _attention_plain(
-            q8, qs, k8, ks, v8 * vs,
+            q8[:b], qs[:b], k8[:b], ks[:b], vcur[:b],
             unpack_kv_int4(cache["k"][li]), cache["k_s"][li].float(),
             unpack_kv_int4(cache["v"][li]), cache["v_s"][li].float(), cache["kv_mask"])
+        if pf is not None:
+            attn = torch.cat([attn, _chunk_attention_plain(
+                q8[b:], qs[b:], k8[b:], ks[b:], vcur[b:],
+                unpack_kv_int4(pf["k"][li]), pf["k_s"][li].float(),
+                unpack_kv_int4(pf["v"][li]), pf["v_s"][li].float(), pf["mask"],
+                pf["amask"])])
         a8, ars = _quant_rows_f32(attn)  # per (row, head)
-        x2 = x + _w4a8_chunks(a8.reshape(b, dim), ars[..., 0], wo, so, ck, dh)
+        x2 = x + _w4a8_chunks(a8.reshape(rows, dim), ars[..., 0], wo, so, ck, dh)
         h2 = _rmsnorm(x2, weights.norms[li, 1], eps)
         gu = _w4a8_chunks(*chunk_quant(h2), wg, sg, ck, ck)
         gate, up = gu[:, :weights.ffn], gu[:, weights.ffn:]
         m = gate * torch.sigmoid(gate) * up
         x = x2 + _w4a8_chunks(*chunk_quant(m), wd, sd, ck, ck)
-    return (x.to(torch.bfloat16), torch.stack(knews).to(torch.int8), torch.stack(knew_ss),
+    cols = (torch.stack(knews).to(torch.int8), torch.stack(knew_ss),
             torch.stack(vnews).to(torch.int8), torch.stack(vnew_ss))
+    out = (x[:b].to(torch.bfloat16), *(t[:, :b].contiguous() for t in cols))
+    if pf is None:
+        return out
+    knew, knew_s, vnew, vnew_s = (t[:, b:].contiguous() for t in cols)
+    return out + (dict(x=x[b:].to(torch.bfloat16), knew=knew, knew_s=knew_s, vnew=vnew,
+                       vnew_s=vnew_s),)
 
 
 # ------------------------------------------------------------------- kernel
-def alloc_scratch(weights: MegaWeights, batch: int, device) -> dict:
-    """The intermediate buffers K5's kernels pass between phases."""
+def alloc_scratch(weights: MegaWeights, rows: int, device) -> dict:
+    """The intermediate buffers K5's kernels pass between phases, for
+    ``rows`` activation rows (the batch, plus the chunk with ``pf``)."""
     dim = weights.norms.shape[-1]
     width = max(dim, weights.ffn)
     f32 = dict(dtype=torch.float32, device=device)
     return dict(
-        x_res=torch.empty(batch, dim, **f32), x2=torch.empty(batch, dim, **f32),
-        hq=torch.empty(batch, width, dtype=torch.int8, device=device),
-        hrs=torch.empty(batch, width // weights.group, **f32),
-        qkv=torch.empty(batch, 3 * dim, **f32),
-        a8=torch.empty(batch, dim, dtype=torch.int8, device=device),
-        ars=torch.empty(batch, weights.heads, **f32),
-        mbuf=torch.empty(batch, weights.ffn, **f32))
+        x_res=torch.empty(rows, dim, **f32), x2=torch.empty(rows, dim, **f32),
+        hq=torch.empty(rows, width, dtype=torch.int8, device=device),
+        hrs=torch.empty(rows, width // weights.group, **f32),
+        qkv=torch.empty(rows, 3 * dim, **f32),
+        a8=torch.empty(rows, dim, dtype=torch.int8, device=device),
+        ars=torch.empty(rows, weights.heads, **f32),
+        mbuf=torch.empty(rows, weights.ffn, **f32))
+
+
+def _check_operands(what: str, device, operands) -> None:
+    """Each (name, tensor, dtype, shape) must be a contiguous tensor of that
+    dtype and shape on ``device``."""
+    for name, t, dtype, shape in operands:
+        if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} tensor of "
+                             f"shape {shape} on {device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
                        cos: torch.Tensor, sin: torch.Tensor, *, eps: float = 1e-5,
                        sm_scale: float | None = None, scratch: dict | None = None,
-                       pointer_table: ctypes.Array | None = None):
+                       pointer_table: ctypes.Array | None = None, pf: dict | None = None):
     """K5: x (B, D) bf16 hidden states of one decode position through every
     decoder layer, against the int4 cache. Returns (x_out (B, D) bf16 before
     the final norm, knew (L, B, H, dh) int8, knew_s (L, B, H) f32, vnew,
-    vnew_s); the caller owns the cache update (``apply_kv_update``).
+    vnew_s); the caller owns the cache update (``apply_kv_update``). With
+    ``pf`` (``mega_decode_layers_plain``'s dict) the chunk's rows ride along
+    and a sixth element carries their outputs.
 
     CPU: ``mega_decode_layers_plain``. CUDA: the ``csrc/mega_decode.cu``
     entry point (head_dim 128, K-chunk a multiple of 256 up to 1024, at
-    most 8 chunks a model row), with ``scratch`` from ``alloc_scratch`` and
-    the weights' ``pointer_table`` made here when not given. Counts its launches in ``mega_decode_layers.launches``."""
+    most 8 chunks a model row), with ``scratch`` from ``alloc_scratch`` for
+    B (+ c) rows and the weights' ``pointer_table`` made here when not given.
+    Counts its launches in ``mega_decode_layers.launches``, those with pf rows
+    (K5-pf) in ``mega_decode_layers.pf_launches``."""
     if x.device.type == "cpu":
         return mega_decode_layers_plain(x, weights, cache, cos, sin, eps=eps,
-                                        sm_scale=sm_scale)
+                                        sm_scale=sm_scale, pf=pf)
     if x.device.type != "cuda":
         raise ValueError(f"mega_decode_layers: x is on {x.device}")
     b, dim = x.shape
@@ -310,12 +389,29 @@ def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"mega_decode_layers: cache[{name!r}] must be a contiguous "
                              f"{dtype} tensor on {x.device}")
+    c = t2 = 0
+    if pf is not None:
+        c, t2 = pf["x"].shape[0], pf["mask"].shape[0]
+        wshape = (n_layers, heads, t2, half_dh)
+        _check_operands("mega_decode_layers pf", x.device, (
+            ("x", pf["x"], torch.bfloat16, (c, dim)),
+            ("cos", pf["cos"], torch.float32, (c, dh)),
+            ("sin", pf["sin"], torch.float32, (c, dh)),
+            ("amask", pf["amask"], torch.int32, (c,)),
+            ("mask", pf["mask"], torch.int32, (t2,)),
+            ("k", pf["k"], torch.uint8, wshape), ("v", pf["v"], torch.uint8, wshape),
+            ("k_s", pf["k_s"], torch.bfloat16, wshape[:-1]),
+            ("v_s", pf["v_s"], torch.bfloat16, wshape[:-1])))
+        if c < 1 or t2 < 1:
+            raise ValueError(f"mega_decode_layers: pf chunk {c} and working cache {t2} "
+                             "must be non-empty")
+    rows = b + c
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(dh)
     if scratch is None:
-        scratch = alloc_scratch(weights, b, x.device)
-    if scratch["x_res"].shape != (b, dim) or scratch["hq"].device != x.device:
-        raise ValueError(f"mega_decode_layers: scratch for batch {b} on {x.device} "
+        scratch = alloc_scratch(weights, rows, x.device)
+    if scratch["x_res"].shape != (rows, dim) or scratch["hq"].device != x.device:
+        raise ValueError(f"mega_decode_layers: scratch for {rows} rows on {x.device} "
                          "expected (alloc_scratch)")
     if pointer_table is None:
         pointer_table = weights.pointer_table()
@@ -327,19 +423,34 @@ def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
     knew_s = torch.empty(n_layers, b, heads, dtype=torch.float32, **dev)
     vnew_s = torch.empty_like(knew_s)
     p = _build.ptr
+    pf_in, pf_out = (0,) * 9, (0,) * 5
+    if pf is not None:
+        out = dict(x=torch.empty(c, dim, dtype=torch.bfloat16, **dev),
+                   knew=torch.empty(n_layers, c, heads, dh, dtype=torch.int8, **dev),
+                   knew_s=torch.empty(n_layers, c, heads, dtype=torch.float32, **dev))
+        out.update(vnew=torch.empty_like(out["knew"]), vnew_s=torch.empty_like(out["knew_s"]))
+        pf_ops = [_build.aligned(pf[k]) for k in ("x", "cos", "sin", "amask", "k", "k_s",
+                                                  "v", "v_s", "mask")]
+        pf_in = tuple(p(t) for t in pf_ops)
+        pf_out = tuple(p(out[k]) for k in ("x", "knew", "knew_s", "vnew", "vnew_s"))
     err = _build.library().mmor_mega_decode(
         p(x), ctypes.addressof(pointer_table), p(weights.norms), p(cache["k"]),
         p(cache["k_s"]), p(cache["v"]), p(cache["v_s"]), p(cache["kv_mask"]), p(cos),
         p(sin), *(p(scratch[k]) for k in ("x_res", "x2", "hq", "hrs", "qkv", "a8",
                                           "ars", "mbuf")),
-        p(x_out), p(knew), p(knew_s), p(vnew), p(vnew_s), n_layers, b, dim, heads,
-        weights.ffn, t_cap, weights.group, float(eps), float(sm_scale), _build.stream())
+        p(x_out), p(knew), p(knew_s), p(vnew), p(vnew_s), *pf_in, *pf_out, n_layers, b,
+        dim, heads, weights.ffn, t_cap, weights.group, c, t2, float(eps), float(sm_scale),
+        _build.stream())
     _build.check(err, "mega_decode_layers")
-    mega_decode_layers.launches += 1
-    return x_out, knew, knew_s, vnew, vnew_s
+    if pf is None:
+        mega_decode_layers.launches += 1
+        return x_out, knew, knew_s, vnew, vnew_s
+    mega_decode_layers.pf_launches += 1
+    return x_out, knew, knew_s, vnew, vnew_s, out
 
 
 mega_decode_layers.launches = 0
+mega_decode_layers.pf_launches = 0
 
 
 # ------------------------------------------------------------------ serving
@@ -357,7 +468,15 @@ class MegaServer:
         self.weights = MegaWeights.from_model(lm)
         device = self.weights.norms.device
         self.pointer_table = self.weights.pointer_table() if device.type == "cuda" else None
+        self.final_norm = lm.final_norm.scale.detach().float()
         self._steps: dict = {}
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final RMSNorm and the int8 lm_head (K2): hidden states (B, D) bf16
+        -> logits (B, V)."""
+        h = _rmsnorm(x.float(), self.final_norm, self.cfg.norm_eps).to(torch.bfloat16)
+        return qmm.int8_matmul_packed(h, self.lm.lm_head.w_p, self.lm.lm_head.scale,
+                                      int8_mxu=self.cfg.quant_int8_mxu)
 
     def step_for(self, batch: int):
         if batch not in self._steps:
@@ -376,8 +495,6 @@ def make_mega_decode_step(server: MegaServer, batch: int, *,
     cfg, lm, weights = server.cfg, server.lm, server.weights
     device = weights.norms.device
     scratch = alloc_scratch(weights, batch, device) if device.type == "cuda" else None
-    final_norm = lm.final_norm.scale.detach().float()
-    lm_head = lm.lm_head
 
     @torch.no_grad()
     def step(cache: dict, tok: torch.Tensor):
@@ -386,9 +503,7 @@ def make_mega_decode_step(server: MegaServer, batch: int, *,
         x, knew, knew_s, vnew, vnew_s = mega_decode_layers(
             x, weights, cache, cos, sin, eps=cfg.norm_eps, scratch=scratch,
             pointer_table=server.pointer_table)
-        h = _rmsnorm(x.float(), final_norm, cfg.norm_eps).to(torch.bfloat16)
-        logits = qmm.int8_matmul_packed(h, lm_head.w_p, lm_head.scale,
-                                        int8_mxu=cfg.quant_int8_mxu)
+        logits = server.head(x)
         outs = (logits.argmax(dim=-1).to(torch.int32),)
         if update_cache:
             outs += (apply_kv_update(cache, knew, knew_s, vnew, vnew_s),)

@@ -42,6 +42,7 @@ def test_port_imports_no_jax():
     assert "mmor_tpu_torch.ops.mega_decode" in modules
     assert "mmor_tpu_torch.cli.eval_panoptic" in modules
     assert "mmor_tpu_torch.ops.deformable_sampler" in modules
+    assert "mmor_tpu_torch.ops.mega_overlap" in modules
     _assert_imports_clean(modules)
 
 

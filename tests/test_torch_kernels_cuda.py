@@ -4,8 +4,10 @@ Edge cases of the kernels' contracts that the serving shapes in
 ``chip_smoke.py`` do not reach: ragged rows and columns, Sq != Sk, separate
 key segment ids, fully masked query rows, f32 activations, the last layer of
 a cache stack, a decode batch row with no valid cache position, the batch
-bucket after EOS compaction. Every test needs a CUDA device and skips
-without one (the kernels have no CPU mode); run them on the card with
+bucket after EOS compaction, K5's piggyback-prefill rows (empty, mid and
+last chunks of the working cache, a chunk with one real column, the decode
+rows bit-identical with and without them). Every test needs a CUDA device
+and skips without one (the kernels have no CPU mode); run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
 Tolerances: bf16 attention rel_l2 <= 2e-2 (the kernels round the softmax
@@ -227,6 +229,61 @@ def test_mega_decode_kernel(dev, case):
     assert M.mega_decode_layers.launches == before + 1
     assert got[0].shape == x.shape and got[1].shape == (2, x.shape[0], 4, 128)
     _assert_mega_close(got, ref)  # both layers, the last one included
+
+
+@pytest.mark.parametrize("batch,c,wp,amask", [
+    (8, 32, 0, "first_3_masked"),       # an empty working cache
+    (8, 128, 128, "first_3_masked"),    # a mid-cache chunk
+    (16, 32, 224, "first_3_masked"),    # the last chunk (wp = T2 - c)
+    (16, 128, 0, "one_column"),         # rows before it see no key at all
+    (8, 32, 128, "one_column"),
+])
+def test_mega_decode_kernel_pf_rows(dev, batch, c, wp, amask):
+    """K5-pf against its plain version, the decode rows bit-identical to the
+    same call without the chunk."""
+    x, weights, cache, cos, sin = _mega_inputs(dev, batch)
+    g = torch.Generator(device=dev).manual_seed(6)
+    t2, shape = 256, (2, 4, 256, 64)
+    work = {name: torch.randint(0, 256, shape, generator=g, device=dev,
+                                dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
+    for name in ("k_s", "v_s"):
+        work[name] = (torch.rand(shape[:-1], generator=g, device=dev) * 0.05 + 0.01
+                      ).to(torch.bfloat16)
+    am = torch.ones(c, dtype=torch.int32, device=dev)
+    if amask == "one_column":
+        am.zero_()
+        am[c // 2] = 1
+    else:
+        am[:3] = 0
+    pcos, psin = M.rope_tables(torch.arange(wp, wp + c, device=dev), 128, 10000.0)
+    pf = dict(x=randn(g, c, 512, dev=dev), cos=pcos, sin=psin, amask=am,
+              mask=(torch.arange(t2, device=dev) < wp).to(torch.int32), **work)
+    base = M.mega_decode_layers(x, weights, cache, cos, sin)
+    before = M.mega_decode_layers.pf_launches
+    got = M.mega_decode_layers(x, weights, cache, cos, sin, pf=pf)
+    ref = M.mega_decode_layers_plain(x, weights, cache, cos, sin, pf=pf)
+    torch.cuda.synchronize()
+    assert M.mega_decode_layers.pf_launches == before + 1
+    for name, a, b in zip(("x", "knew", "knew_s", "vnew", "vnew_s"), got[:5], base):
+        assert torch.equal(a, b), name
+    _assert_mega_close(got, ref)
+    keys = ("x", "knew", "knew_s", "vnew", "vnew_s")
+    assert got[5]["x"].shape == (c, 512) and got[5]["knew"].shape == (2, c, 4, 128)
+    _assert_mega_close([got[5][k] for k in keys], [ref[5][k] for k in keys])
+
+
+def test_mega_decode_kernel_pf_refuses_bad_operands(dev):
+    x, weights, cache, cos, sin = _mega_inputs(dev, 8)
+    pf = dict(x=randn(torch.Generator(device=dev), 32, 512, dev=dev),
+              cos=cos[:1].expand(32, -1).contiguous(), sin=sin[:1].expand(32, -1).contiguous(),
+              amask=torch.ones(32, dtype=torch.int32, device=dev),
+              mask=torch.zeros(256, dtype=torch.int32, device=dev),
+              k=torch.zeros(2, 4, 256, 64, dtype=torch.uint8, device=dev),
+              k_s=torch.ones(2, 4, 256, dtype=torch.bfloat16, device=dev),
+              v=torch.zeros(2, 4, 256, 64, dtype=torch.uint8, device=dev),
+              v_s=torch.ones(2, 4, 256, dtype=torch.float32, device=dev))
+    with pytest.raises(ValueError, match="v_s"):
+        M.mega_decode_layers(x, weights, cache, cos, sin, pf=pf)
 
 
 def _k6_args(g, dev, shapes, n, lq, m, d, dtype, spread=0.2):

@@ -8,15 +8,18 @@ Run from the root of a checkout, with no arguments:
 Phases (each prints its lines; any failure exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles K1-K6 and K5's piggyback-prefill rows (K5-pf) from
-   ``mmor_tpu_torch/csrc`` (one nvcc a source);
+1. build: compiles K1-K6, K5's piggyback-prefill rows (K5-pf) and its int8
+   widths (K5-int8) from ``mmor_tpu_torch/csrc`` (one nvcc a source), and
+   prints the registers, stack frame and spills of each kernel compiled
+   from ``mega_decode.cu``;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes, with the bound stated on each line, and its time
    beside its roofline bound, the plain version's time and, where one
-   PyTorch call computes the same function, that call's time; K5-pf at 7B
-   widths and depth 2 (8 decode rows, a 128-row chunk, a 768-column working
-   cache) also holds the decode rows bit-identical to the same call without
-   the chunk;
+   PyTorch call computes the same function, that call's time; K5 at 7B
+   widths and depth 2 at all four (weight, KV cache) width pairs; K5-pf and
+   K5-int8-pf, at (4, 4) and (8, 8) (8 decode rows, a 128-row chunk, a
+   768-column working cache), each layer alone, with the decode rows
+   bit-identical to the same call without the chunk;
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
@@ -53,11 +56,18 @@ Phases (each prints its lines; any failure exits non-zero):
    K3, K5 and K5-pf; batch 0's tokens against ``generate_stepwise``'s; one
    handed-off stream's cache against the same prompt token by token through
    K5 (the CPU test's bounds), and its first token's logits against that
-   oracle's within a rounding floor measured in the run.
+   oracle's within a rounding floor measured in the run;
+10. int8 megakernel path: phase 3's inputs through MM2SG-7B with int8
+    weights and an int8 KV cache decoded by K5-int8, the JAX megakernel's
+    default, built as ``bench.py``'s megakernel rung (cache capacity 1024,
+    128-granular): what phase 5 reports, for K5-int8;
+11. overlapped int8 path: phase 10's model (one model for both) through
+    ``generate_overlapped`` as phase 9 runs it: what phase 9 reports, for
+    K5-int8 and its pf rows.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset.
-Nothing here imports JAX.
+Each phase prints its wall time. The line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+``--phases`` runs a subset. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -93,12 +104,19 @@ KERNELS = {
     "K5-pf mega_decode_layers(pf)": (
         "cuda", "mmor_tpu_torch/csrc/mega_decode.cu",
         "mmor_tpu/ops/mega_decode.py:853"),
+    "K5-int8 mega_decode_layers(int8)": (
+        "cuda", "mmor_tpu_torch/csrc/mega_decode.cu",
+        "mmor_tpu/ops/mega_decode.py:663"),
+    "K5-int8-pf mega_decode_layers(int8,pf)": (
+        "cuda", "mmor_tpu_torch/csrc/mega_decode.cu",
+        "mmor_tpu/ops/mega_decode.py:853"),
     "K6 ms_deform_attn": (
         "cuda", "mmor_tpu_torch/csrc/ms_deform_attn.cu",
         "mmor_tpu/ops/deformable_sampler.py:268"),
 }
 # the kernels each serving path runs (phase 3: int8, phase 5: int4,
-# phase 7: panoptic, phase 9: overlapped int4)
+# phase 7: panoptic, phase 9: overlapped int4, phase 10: int8 megakernel,
+# phase 11: overlapped int8 megakernel)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
@@ -107,6 +125,11 @@ PATH_KERNELS = {
     "panoptic": ("K6 ms_deform_attn",),
     "overlap": ("K1 flash_attention", "K2 int8_matmul_packed", "K3 int4_matmul_packed",
                 "K5 mega_decode_layers", "K5-pf mega_decode_layers(pf)"),
+    "mega8": ("K1 flash_attention", "K2 int8_matmul_packed",
+              "K5-int8 mega_decode_layers(int8)"),
+    "overlap8": ("K1 flash_attention", "K2 int8_matmul_packed",
+                 "K5-int8 mega_decode_layers(int8)",
+                 "K5-int8-pf mega_decode_layers(int8,pf)"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -153,10 +176,17 @@ PANOPTIC_SIZE, PANOPTIC_FRAMES = (736, 1280), 9
 # near a minute)
 OVERLAP_CHUNK, OVERLAP_WARM, OVERLAP_SHORT, OVERLAP_LONG = 128, 2, 2, 4
 # the handed-off cache against its token-by-token oracle
-# (tests/test_torch_overlap.py's bounds): layer 0's K/V bit-exact, later
-# layers within one int4 bin in more than this share of entries, scales
-# within this rel_l2
-ORACLE_BIN_SHARE, ORACLE_REL = 0.9, 0.05
+# (tests/test_torch_overlap.py's bounds, JAX's test_pf_prefill_matches_
+# tokenwise_decode_oracle's): layer 0's K/V bit-exact, later layers within
+# one bin in more than ORACLE_BIN_SHARE of entries, scales within
+# ORACLE_REL. The bin share is held wherever rounding alone keeps it, in
+# each layer and overall: the floor is the oracle fed embeddings moved by
+# one bf16 step. On an H100 the int4 floor stays above it (0.995 overall,
+# 0.990 at layer 28), but the random 7B model spreads the int8 floor to
+# 0.729 at layer 1, 0.300 at layer 28 and 0.409 overall (int8 bins are 18x
+# finer); so every layer is also held to within ORACLE_FLOOR_MARGIN below
+# its floor's share.
+ORACLE_BIN_SHARE, ORACLE_REL, ORACLE_FLOOR_MARGIN = 0.9, 0.05, 0.05
 
 
 def say(phase: str, **fields) -> None:
@@ -210,7 +240,8 @@ def kernel_modules():
 
 def _counters() -> dict:
     """Each kernel's launch count: (wrapper, attribute). K5's wrapper counts
-    its launches with pf rows (K5-pf) apart from those without."""
+    its launches with pf rows (K5-pf) apart from those without, and those at
+    an int8 width (K5-int8) apart from the int4 ones."""
     A, Q, M, D = kernel_modules()
     return {"K1 flash_attention": (A.flash_attention, "launches"),
             "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
@@ -219,6 +250,9 @@ def _counters() -> dict:
                                                  "launches"),
             "K5 mega_decode_layers": (M.mega_decode_layers, "launches"),
             "K5-pf mega_decode_layers(pf)": (M.mega_decode_layers, "pf_launches"),
+            "K5-int8 mega_decode_layers(int8)": (M.mega_decode_layers, "int8_launches"),
+            "K5-int8-pf mega_decode_layers(int8,pf)": (M.mega_decode_layers,
+                                                       "int8_pf_launches"),
             "K6 ms_deform_attn": (D.ms_deform_attn_sampler, "launches")}
 
 
@@ -332,12 +366,22 @@ def _attention_mask(b, sq, sk, causal, seg, dev):
     return mask
 
 
-def _k5_cases(dev, g):
-    """K5 at full 7B width and depth 2: B=8, T=1024 with a partly masked
-    int4 cache, random hidden states, int4 weights in 1024-row groups; then
-    K5-pf, the same call carrying a 128-row chunk against a 768-column
-    working cache of which 384 columns are written (a stream's fourth chunk
-    at phase 9's shapes)."""
+def k5_names(widths) -> tuple[str, str]:
+    """The kernel names of K5's variant at (wbits, kvbits): without and
+    with pf rows."""
+    if tuple(widths) == (4, 4):
+        return "K5 mega_decode_layers", "K5-pf mega_decode_layers(pf)"
+    return "K5-int8 mega_decode_layers(int8)", "K5-int8-pf mega_decode_layers(int8,pf)"
+
+
+def _k5_cases(dev, g, wbits: int = 4, kvbits: int = 4, with_pf: bool = True,
+              on_path: bool = True):
+    """K5 at full 7B width and depth 2 at (wbits, kvbits): B=8, T=1024 with a
+    partly masked cache, random hidden states, int4 weights in 1024-row
+    groups or int8 weights with per-channel scales; then, ``with_pf``, the
+    same call carrying a 128-row chunk against a 768-column working cache
+    of which 384 columns are written (a stream's fourth chunk at the
+    overlapped paths' shapes)."""
     import torch
 
     from mmor_tpu_torch.ops import mega_decode as M
@@ -345,26 +389,37 @@ def _k5_cases(dev, g):
 
     L, B, H, T, dh, D, F, G = 2, 8, 32, 1024, 128, 4096, 11264, 1024
     C, T2, WP = 128, 768, 384
+    k5, k5pf = k5_names((wbits, kvbits))
     shapes = ((D, 3 * D), (D, D), (D, 2 * F), (F, D))
     layers = [[] for _ in range(8)]
     for _ in range(L):
         for i, (k, n) in enumerate(shapes):
-            wq, sc = Q.quantize_weights_int4(
-                torch.randn(k, n, generator=g, device=dev) * 0.02, G)
-            layers[2 * i].append(Q.pack_int4_rows(wq, G))
+            w = torch.randn(k, n, generator=g, device=dev) * 0.02
+            if wbits == 4:
+                wq, sc = Q.quantize_weights_int4(w, G)
+                layers[2 * i].append(Q.pack_int4_rows(wq, G))
+            else:
+                wq, sc = Q.quantize_weights(w)
+                layers[2 * i].append(Q.pack_int8_rows(wq))
             layers[2 * i + 1].append(sc)
     norms = 1 + 0.1 * torch.randn(L, 2, D, generator=g, device=dev)
-    weights = M.MegaWeights(layers, norms, G, F, H)
+    weights = M.MegaWeights(layers, norms, G, F, H, wbits)
 
-    def int4_cache(*lead):
-        cache = {name: torch.randint(0, 256, (*lead, dh // 2), generator=g, device=dev,
-                                     dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
+    def kv_cache(*lead):
+        if kvbits == 8:
+            cache = {name: torch.randint(-127, 128, (*lead, dh), generator=g, device=dev,
+                                         dtype=torch.int32).to(torch.int8)
+                     for name in ("k", "v")}
+        else:
+            cache = {name: torch.randint(0, 256, (*lead, dh // 2), generator=g, device=dev,
+                                         dtype=torch.int32).to(torch.uint8)
+                     for name in ("k", "v")}
         for name in ("k_s", "v_s"):
             cache[name] = (torch.rand(*lead, generator=g, device=dev) * 0.05 + 0.01
                            ).to(torch.bfloat16)
         return cache
 
-    cache = int4_cache(L, B, H, T)
+    cache = kv_cache(L, B, H, T)
     mask = torch.zeros(B, T, dtype=torch.int32, device=dev)
     for r in range(B):
         mask[r, 8 * r: 708 + 37 * r] = 1
@@ -375,25 +430,32 @@ def _k5_cases(dev, g):
     table = weights.pointer_table()
     args = (x, weights, cache, cos, sin)
     valid = int(mask.sum())
-    weight_bytes = L * sum(k * n // 2 + (k // G) * n * 4 for k, n in shapes)
-    kv_bytes = L * H * valid * 2 * (dh // 2 + 2)
+    if wbits == 4:
+        weight_bytes = L * sum(k * n // 2 + (k // G) * n * 4 for k, n in shapes)
+    else:
+        weight_bytes = L * sum(k * n + n * 4 for k, n in shapes)
+    row = dh // 2 if kvbits == 4 else dh  # bytes of a cache row
+    kv_bytes = L * H * valid * 2 * (row + 2)
     nbytes = weight_bytes + kv_bytes + B * T * 4 + 2 * B * D * 2 + L * B * H * (2 * dh + 8)
     weight_ops = 2.0 * L * sum(k * n for k, n in shapes)  # a row's int8 operations
     ops = {"int8": B * weight_ops, "cuda_core": 4.0 * L * H * valid * dh}
 
     def extra(out, ref):
         return {k: f"{v:.5f}" if k.endswith("agree") else f"{v:.3e}"
-                for k, v in k5_columns(out, ref, "K5").items()}
+                for k, v in k5_columns(out, ref, k5.split()[0]).items()}
 
     scratch = M.alloc_scratch(weights, B, dev)
-    k5 = Case("K5 mega_decode_layers", f"7B L={L} B={B} T={T} partly masked",
-              lambda: M.mega_decode_layers(*args, scratch=scratch, pointer_table=table),
-              lambda: M.mega_decode_layers_plain(*args), K5_X_BOUND, 10, True,
-              nbytes, ops, extra=extra)
+    plain_case = Case(
+        k5, f"7B w{wbits}kv{kvbits} L={L} B={B} T={T} partly masked",
+        lambda: M.mega_decode_layers(*args, scratch=scratch, pointer_table=table),
+        lambda: M.mega_decode_layers_plain(*args), K5_X_BOUND, 10, on_path,
+        nbytes, ops, extra=extra)
+    if not with_pf:
+        return [plain_case]
 
     # the chunk: row i at position WP + i of a stream whose first 5 columns
     # are left padding (masked in the working cache and, as keys, by amask)
-    work = int4_cache(L, H, T2)
+    work = kv_cache(L, H, T2)
     amask = torch.ones(C, dtype=torch.int32, device=dev)
     amask[:5] = 0
     wmask = torch.zeros(T2, dtype=torch.int32, device=dev)
@@ -406,7 +468,7 @@ def _k5_cases(dev, g):
     w_valid = int(wmask.sum())
     # the decode call's bytes, the written working-cache columns, the chunk's
     # mask, embeddings in and out, RoPE tables and amask, and its new columns
-    pf_bytes = (nbytes + L * H * w_valid * 2 * (dh // 2 + 2) + T2 * 4 + 2 * C * D * 2
+    pf_bytes = (nbytes + L * H * w_valid * 2 * (row + 2) + T2 * 4 + 2 * C * D * 2
                 + C * (2 * dh * 4 + 4) + L * C * H * (2 * dh + 8))
     inline_pairs = sum(min(i + 1, C) for i in range(C))  # causal (i, j <= i) pairs
     pf_ops = {"int8": (B + C) * weight_ops,
@@ -422,11 +484,12 @@ def _k5_cases(dev, g):
         flipped int8 key of a chunk row moves every later row's causal
         attention, so the chunk rows' rounding floor is far above the
         decode rows'."""
+        name = k5pf.split()[0]
         fields = {k: f"{v:.5f}" if k.endswith("agree") else f"{v:.3e}"
-                  for k, v in k5_columns(out, ref, "K5-pf decode rows").items()}
+                  for k, v in k5_columns(out, ref, f"{name} decode rows").items()}
         same = all(torch.equal(a, b) for a, b in zip(out[:5], base))
-        check(same, "K5-pf: the decode rows differ from the same call without the chunk")
-        check(bool(torch.isfinite(out[5]["x"].float()).all()), "K5-pf chunk x non-finite")
+        check(same, f"{name}: the decode rows differ from the same call without the chunk")
+        check(bool(torch.isfinite(out[5]["x"].float()).all()), f"{name} chunk x non-finite")
         keys = ("x", "knew", "knew_s", "vnew", "vnew_s")
         gen = torch.Generator(device=dev).manual_seed(3)
 
@@ -439,16 +502,17 @@ def _k5_cases(dev, g):
                              ref[5]["x"])
         worst_err, worst_agree, worst_floor, x_in, pf_in = 0.0, 1.0, 0.0, x, pf
         for li in range(L):
-            one = M.MegaWeights([[slot[li]] for slot in layers], norms[li:li + 1], G, F, H)
+            one = M.MegaWeights([[slot[li]] for slot in layers], norms[li:li + 1], G, F, H,
+                                wbits)
             c1 = dict(cache, **{k: cache[k][li:li + 1] for k in ("k", "v", "k_s", "v_s")})
             p1 = dict(pf_in, **{k: pf[k][li:li + 1] for k in ("k", "v", "k_s", "v_s")})
             got1 = M.mega_decode_layers(x_in, one, c1, cos, sin, scratch=scratch_pf, pf=p1)
             ref1 = M.mega_decode_layers_plain(x_in, one, c1, cos, sin, pf=p1)
             err = rel_l2(got1[5]["x"], ref1[5]["x"])
             check(err <= K5_X_BOUND,
-                  f"K5-pf layer {li}: chunk x rel_l2 {err:.3e} > {K5_X_BOUND:.0e}")
+                  f"{name} layer {li}: chunk x rel_l2 {err:.3e} > {K5_X_BOUND:.0e}")
             cols = k5_columns([got1[5][k] for k in keys], [ref1[5][k] for k in keys],
-                              f"K5-pf layer {li} chunk rows")
+                              f"{name} layer {li} chunk rows")
             floor = rel_l2(M.mega_decode_layers_plain(x_in, one, c1, cos, sin,
                                                       pf=nudged(p1))[5]["x"], ref1[5]["x"])
             worst_err = max(worst_err, err)
@@ -463,13 +527,13 @@ def _k5_cases(dev, g):
                       chunk_full_depth_floor_rel_l2=f"{depth_floor:.3e}")
         return fields
 
-    k5_pf = Case("K5-pf mega_decode_layers(pf)",
-                 f"7B L={L} B={B} T={T} + chunk {C} T2={T2} wp={WP}",
-                 lambda: M.mega_decode_layers(*args, scratch=scratch_pf, pointer_table=table,
-                                              pf=pf),
-                 lambda: M.mega_decode_layers_plain(*args, pf=pf), K5_X_BOUND, 10, True,
-                 pf_bytes, pf_ops, extra=extra_pf)
-    return [k5, k5_pf]
+    pf_case = Case(k5pf, f"7B w{wbits}kv{kvbits} L={L} B={B} T={T} + chunk {C} T2={T2} "
+                         f"wp={WP}",
+                   lambda: M.mega_decode_layers(*args, scratch=scratch_pf,
+                                                pointer_table=table, pf=pf),
+                   lambda: M.mega_decode_layers_plain(*args, pf=pf), K5_X_BOUND, 10, on_path,
+                   pf_bytes, pf_ops, extra=extra_pf)
+    return [plain_case, pf_case]
 
 
 def k5_columns(out, ref, what: str) -> dict:
@@ -595,6 +659,13 @@ def kernel_cases(dev):
 
     cases.extend(_k5_cases(dev, g))
     cases.extend(_k6_cases(dev, g))
+    # K5-int8 at the other width pairs, from a generator of their own so
+    # that the cases above keep their inputs: (8, 8) with and without pf
+    # rows (phases 10 and 11), and the mixed pairs the JAX package tests
+    g8 = torch.Generator(device=dev).manual_seed(8)
+    cases.extend(_k5_cases(dev, g8, 8, 8))
+    for wbits, kvbits in ((4, 8), (8, 4)):
+        cases.extend(_k5_cases(dev, g8, wbits, kvbits, with_pf=False, on_path=False))
     return cases
 
 
@@ -919,8 +990,9 @@ def phase_cli(dev, preset_name: str = "7b", quantize: str = "int8", phase: str =
 
 # ---------------------------------------------------------------- phase 5
 # the kernels of csrc/mega_decode.cu (K5), by name in a profiler trace
-K5_KERNEL_NAMES = ("w4a8::skinny_kernel", "attention_kernel", "norm_quant_kernel",
-                   "widen_kernel", "narrow_kernel", "chunk_rope_quant_kernel")
+K5_KERNEL_NAMES = ("w4a8::skinny_kernel", "w8a8::skinny_kernel", "attention_kernel",
+                   "norm_quant_kernel", "widen_kernel", "narrow_kernel",
+                   "chunk_rope_quant_kernel")
 
 
 def device_window(dev, fn, names=K5_KERNEL_NAMES) -> tuple[int, float, float, float]:
@@ -942,36 +1014,57 @@ def device_window(dev, fn, names=K5_KERNEL_NAMES) -> tuple[int, float, float, fl
     return len(events), sum(e.time_range.elapsed_us() for e in events), wall_us, k5_us
 
 
-def phase_int4_path(dev, preset_name: str = "7b", batch: int = BATCH,
-                    prompt_len: int = PROMPT_LEN, new_tokens: int = NEW_TOKENS,
-                    profile_dir: str | None = None) -> dict:
-    """MM2SG ``--quantize int4`` serving through ``generate_stepwise`` with
-    the decode megakernel, on phase 3's inputs; returns the launch counts of
-    the warm and timed runs. With ``profile_dir``, also writes per-kernel
-    device time tables of ``LAUNCH_STEPS`` decode steps and one prefill."""
+def build_mega_predictor(dev, widths, preset_name: str = "7b"):
+    """The MM2SG predictor of a megakernel serving configuration at
+    (wbits, kvbits), seeded weights: (4, 4) is ``--quantize int4``; any
+    other pair is built as ``bench.py:386-393`` builds its megakernel rung
+    (``quantize_mega``: fused qkv / gate_up, ``ffn_pad`` 256 at 7B, decode
+    through K5)."""
+    from mmor_tpu_torch.cli.common import build_predictor, quantize_mega
+    from mmor_tpu_torch.inference import ByteTokenizer, SceneGraphPredictor
+
+    if tuple(widths) == (4, 4):
+        return build_predictor(preset_name, ByteTokenizer(), None, quantize="int4",
+                               device=dev, seed=0)
+    float_model = build_predictor(preset_name, ByteTokenizer(), None, device=dev,
+                                  seed=0).model
+    model = quantize_mega(float_model, *widths).eval()
+    return SceneGraphPredictor(cfg=model.cfg, model=model, tokenizer=ByteTokenizer(),
+                               device=dev)
+
+
+def phase_mega_path(dev, predictor=None, widths=(4, 4), phase: str = "5 int4-path",
+                    path: str = "int4", batch: int = BATCH, prompt_len: int = PROMPT_LEN,
+                    new_tokens: int = NEW_TOKENS, profile_dir: str | None = None) -> dict:
+    """MM2SG megakernel serving at (wbits, kvbits) through
+    ``generate_stepwise``, on phase 3's inputs (phase 5: ``--quantize int4``;
+    phase 10: int8 weights and KV, ``predictor`` shared with phase 11);
+    returns the launch counts of the warm and timed runs. With
+    ``profile_dir``, also writes per-kernel device time tables of
+    ``LAUNCH_STEPS`` decode steps and one prefill."""
     import torch
 
-    from mmor_tpu_torch.cli.common import build_predictor
-    from mmor_tpu_torch.inference import ByteTokenizer
     from mmor_tpu_torch.models.mm2sg import generate_stepwise, make_prefill
     from mmor_tpu_torch.ops import mega_decode as M
 
     t0 = time.perf_counter()
-    predictor = build_predictor(preset_name, ByteTokenizer(), None, quantize="int4",
-                                device=dev, seed=0)
+    if predictor is None:
+        predictor = build_mega_predictor(dev, widths)
     model, cfg = predictor.model, predictor.model.cfg
     lc, server = cfg.llama, predictor._step
     data = left_padded_batch(cfg, batch, prompt_len, dev)
     sync(dev)
     n_packed = sum(b.numel() * b.element_size() for b in model.language_model.buffers())
-    say("5 int4-path", step="setup", preset=preset_name,
-        seconds=f"{time.perf_counter() - t0:.2f}", lm_packed_bytes=n_packed,
-        weight_bits=lc.weight_bits, weight_group=lc.weight_group, kv_bits=lc.kv_bits,
-        mega_decode=lc.mega_decode, ffn_pad=lc.ffn_pad, quant_int8_mxu=lc.quant_int8_mxu)
-    check(lc.mega_decode and lc.weight_bits == 4 and lc.kv_bits == 4 and lc.fused_qkv
-          and lc.quant_int8_mxu and isinstance(server, M.MegaServer), "not the int4 config")
+    say(phase, step="setup", preset="7b", seconds=f"{time.perf_counter() - t0:.2f}",
+        lm_packed_bytes=n_packed, weight_bits=lc.weight_bits,
+        weight_group=lc.weight_group, kv_bits=lc.kv_bits, mega_decode=lc.mega_decode,
+        ffn_pad=lc.ffn_pad, quant_int8_mxu=lc.quant_int8_mxu)
+    check(lc.mega_decode and (lc.weight_bits, lc.kv_bits) == tuple(widths) and lc.fused_qkv
+          and lc.quant_int8_mxu and isinstance(server, M.MegaServer),
+          f"not the w{widths[0]}kv{widths[1]} megakernel config")
 
     cache_len = predictor._cache_len_for(prompt_len)
+    check(cache_len % M.mega_granule(lc) == 0, f"capacity {cache_len} off its granule")
     cfg_run = dict(max_cache_len=cache_len, max_new_tokens=new_tokens, eos_token_id=-1)
     prefill = make_prefill(model, max_cache_len=cache_len)
     prefill_s: list[float] = []
@@ -998,16 +1091,16 @@ def phase_int4_path(dev, preset_name: str = "7b", batch: int = BATCH,
         total = time.perf_counter() - t
         runs.append(tokens)
         decode_ms = (total - prefill_s[-1]) * 1e3 / (new_tokens - 1)
-        say("5 int4-path", step=f"run{i + 1}", frames_per_s=f"{batch / total:.4f}",
+        say(phase, step=f"run{i + 1}", frames_per_s=f"{batch / total:.4f}",
             total_s=f"{total:.4f}", prefill_ms=f"{prefill_s[-1] * 1e3:.2f}",
             decode_ms_per_token=f"{decode_ms:.3f}", cache_len=cache_len)
-    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["int4"]}
+    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS[path]}
     peak = torch.cuda.max_memory_allocated(dev)
-    say("5 int4-path", step="launches", peak_mem_bytes=peak,
+    say(phase, step="launches", peak_mem_bytes=peak,
         tokens="x".join(map(str, tokens.shape)),
         **{k.split()[0]: v for k, v in counts.items()})
     for name, n in counts.items():
-        check(n > 0, f"{name} was not launched on the int4 path")
+        check(n > 0, f"{name} was not launched on the {path} path")
     check(tokens.shape == (batch, new_tokens), f"tokens {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < lc.vocab_size)).all()), "token ids out of range")
     check(bool((runs[0] == runs[1]).all()), "two runs on the same inputs disagree")
@@ -1026,32 +1119,27 @@ def phase_int4_path(dev, preset_name: str = "7b", batch: int = BATCH,
 
     decode_steps()  # warm
     n_ev, busy_us, wall_us, k5_us = device_window(dev, decode_steps)
-    # K5's roofline for one step at full depth: every layer's int4 weights and
-    # scales, and the valid int4 K/V positions with their scales
-    weights = server.weights
-    w_bytes = sum(t.numel() * t.element_size() for slot in weights.layers for t in slot)
-    n_weights = sum(2 * t.numel() * t.element_size() for slot in weights.layers[0::2]
-                    for t in slot)  # two int4 values a byte of the packed words
+    # K5's roofline for one step at full depth: every layer's weights and
+    # scales, and the valid K/V positions with their scales
     valid = int(cache["kv_mask"].sum())
-    kv_bytes = lc.n_layers * lc.n_heads * valid * 2 * (lc.head_dim // 2 + 2)
-    k5_bound_ms, k5_bound_by = roofline_ms(
-        w_bytes + kv_bytes, {"int8": 2.0 * batch * n_weights,
-                             "cuda_core": 4.0 * lc.n_layers * lc.n_heads * valid * lc.head_dim})
-    say("5 int4-path", step="decode-profile", steps=LAUNCH_STEPS,
+    k5_bound_ms, k5_bound_by = k5_roofline(server.weights, lc, batch, valid)
+    w_bytes = sum(t.numel() * t.element_size() for slot in server.weights.layers
+                  for t in slot)
+    say(phase, step="decode-profile", steps=LAUNCH_STEPS,
         launches_per_step=f"{n_ev / LAUNCH_STEPS:.1f}",
         device_busy_ms_per_step=f"{busy_us / 1e3 / LAUNCH_STEPS:.3f}",
         wall_ms_per_step=f"{wall_us / 1e3 / LAUNCH_STEPS:.3f}",
         idle_share=f"{max(0.0, 1 - busy_us / wall_us):.4f}",
         k5_device_ms_per_step=f"{k5_us / 1e3 / LAUNCH_STEPS:.3f}",
         k5_bound_ms=f"{k5_bound_ms:.4f}", k5_bound_by=k5_bound_by,
-        k5_weight_bytes=w_bytes, k5_kv_bytes=kv_bytes)
+        k5_weight_bytes=w_bytes, k5_kv_bytes=kv_bytes(lc, valid))
     if profile_dir:
-        profile_window(dev, f"int4_decode_{LAUNCH_STEPS}_steps", decode_steps, profile_dir,
-                       phase="5 profile")
-        profile_window(dev, "int4_prefill", lambda: prefill(data, bufs), profile_dir,
-                       phase="5 profile")
+        profile_window(dev, f"{path}_decode_{LAUNCH_STEPS}_steps", decode_steps,
+                       profile_dir, phase=phase.split()[0] + " profile")
+        profile_window(dev, f"{path}_prefill", lambda: prefill(data, bufs), profile_dir,
+                       phase=phase.split()[0] + " profile")
 
-    k5_full_depth(server, cache, tok, lc)
+    k5_full_depth(server, cache, tok, lc, phase)
     _, logits_k = observe(cache, tok[:, None])
     with plain_versions():
         _, logits_p = observe(cache, tok[:, None])
@@ -1064,7 +1152,7 @@ def phase_int4_path(dev, preset_name: str = "7b", batch: int = BATCH,
     top2 = logits_p.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * diff  # rows whose argmax cannot flip
     agree = logits_k.argmax(-1) == logits_p.argmax(-1)
-    say("5 int4-path", step="k5-vs-plain-decode-step", logits_rel_l2=f"{err:.3e}",
+    say(phase, step="k5-vs-plain-decode-step", logits_rel_l2=f"{err:.3e}",
         rounding_floor_rel_l2=f"{floor:.3e}", bound=f"{bound:.3e}",
         next_token_agree=f"{int(agree.sum())}/{batch}", clear_margin_rows=int(clear.sum()),
         finite=bool(torch.isfinite(logits_k).all()))
@@ -1074,7 +1162,7 @@ def phase_int4_path(dev, preset_name: str = "7b", batch: int = BATCH,
     return counts
 
 
-def k5_full_depth(server, cache: dict, tok, lc) -> None:
+def k5_full_depth(server, cache: dict, tok, lc, phase: str) -> None:
     """K5 on the served model's cache at full depth against its plain
     version. Each layer alone, fed the plain version's output of the layer
     before, is held to phase 2's bounds (x_out rel_l2, the new K/V columns);
@@ -1099,7 +1187,7 @@ def k5_full_depth(server, cache: dict, tok, lc) -> None:
     worst_err, worst_agree = 0.0, 1.0
     for li in range(lc.n_layers):
         one = M.MegaWeights([[slot[li]] for slot in w.layers], w.norms[li:li + 1],
-                            w.group, w.ffn, w.heads)
+                            w.group, w.ffn, w.heads, w.wbits)
         c1 = dict(cache, **{k: cache[k][li:li + 1] for k in ("k", "v", "k_s", "v_s")})
         out = M.mega_decode_layers(x, one, c1, cos, sin, scratch=scratch, **kw)
         ref = M.mega_decode_layers_plain(x, one, c1, cos, sin, **kw)
@@ -1109,7 +1197,7 @@ def k5_full_depth(server, cache: dict, tok, lc) -> None:
         worst_err = max(worst_err, err)
         worst_agree = min(worst_agree, cols["knew_agree"], cols["vnew_agree"])
         x = ref[0]
-    say("5 int4-path", step="k5-vs-plain-by-layer", layers=lc.n_layers,
+    say(phase, step="k5-vs-plain-by-layer", layers=lc.n_layers,
         worst_x_out_rel_l2=f"{worst_err:.3e}", bound=f"{K5_X_BOUND:.0e}",
         worst_kv_agree=f"{worst_agree:.5f}", kv_bound=K5_KV_AGREE,
         full_depth_x_out_rel_l2=f"{depth_err:.3e}", full_depth_kv_agree=f"{depth_agree:.5f}")
@@ -1278,44 +1366,53 @@ def phase_panoptic_cli(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 9
+def kv_bytes(lc, positions: int) -> int:
+    """The bytes of ``positions`` K/V positions of every layer and head at
+    the cache's width, with their bf16 scales."""
+    row = lc.head_dim // 2 if lc.kv_bits == 4 else lc.head_dim
+    return lc.n_layers * lc.n_heads * positions * 2 * (row + 2)
+
+
 def k5_roofline(weights, lc, rows: int, kv_valid: int, work_valid: int = 0,
                 chunk: int = 0) -> tuple[float, str]:
-    """K5's bound for one step at full depth: every layer's int4 weights and
-    scales read once for ``rows`` activation rows, the valid int4 K/V
-    positions of the decode cache (and of the working cache) with their
-    scales; the int8 matmul operations and the attention's dot products
-    (with pf rows: the chunk's working-cache columns and its causal
-    pairs)."""
+    """K5's bound for one step at full depth: every layer's weights and
+    scales read once for ``rows`` activation rows, the valid K/V positions
+    of the decode cache (and of the working cache) with their scales; the
+    int8 matmul operations and the attention's dot products (with pf rows:
+    the chunk's working-cache columns and its causal pairs)."""
     w_bytes = sum(t.numel() * t.element_size() for slot in weights.layers for t in slot)
-    n_weights = sum(2 * t.numel() * t.element_size() for slot in weights.layers[0::2]
-                    for t in slot)  # two int4 values a byte of the packed words
-    per_pos = lc.n_layers * lc.n_heads * 2 * (lc.head_dim // 2 + 2)
+    per_byte = 2 if weights.wbits == 4 else 1  # weight values a byte of the packed words
+    n_weights = sum(per_byte * t.numel() * t.element_size() for slot in weights.layers[0::2]
+                    for t in slot)
     pairs = kv_valid + chunk * work_valid + chunk * (chunk + 1) // 2
-    return roofline_ms(w_bytes + per_pos * (kv_valid + work_valid),
+    return roofline_ms(w_bytes + kv_bytes(lc, kv_valid + work_valid),
                        {"int8": 2.0 * rows * n_weights,
                         "cuda_core": 4.0 * lc.n_layers * lc.n_heads * pairs * lc.head_dim})
 
 
-def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
+def phase_overlap(dev, predictor=None, widths=(4, 4), phase: str = "9 overlap",
+                  path: str = "overlap", batch: int = BATCH, prompt_len: int = PROMPT_LEN,
                   new_tokens: int = NEW_TOKENS, chunk: int = OVERLAP_CHUNK,
                   profile_dir: str | None = None) -> dict:
-    """MM2SG ``--quantize int4`` serving through ``generate_overlapped`` on
-    phase 5's inputs (batches alternate between two seeded batches of that
-    shape); returns the launch counts of the warm and timed streams."""
+    """MM2SG megakernel serving at (wbits, kvbits) through
+    ``generate_overlapped`` on phase 5's inputs (batches alternate between
+    two seeded batches of that shape; phase 9: ``--quantize int4``; phase
+    11: int8 weights and KV, ``predictor`` shared with phase 10); returns
+    the launch counts of the warm and timed streams."""
     import torch
 
-    from mmor_tpu_torch.cli.common import build_predictor
-    from mmor_tpu_torch.inference import ByteTokenizer
     from mmor_tpu_torch.models.llama import alloc_kv_buffers
     from mmor_tpu_torch.models.mm2sg import generate_overlapped, generate_stepwise
     from mmor_tpu_torch.ops import mega_decode as M
     from mmor_tpu_torch.ops import mega_overlap as O
 
     t0 = time.perf_counter()
-    predictor = build_predictor("7b", ByteTokenizer(), None, quantize="int4", device=dev,
-                                seed=0)
+    if predictor is None:
+        predictor = build_mega_predictor(dev, widths)
     model, cfg = predictor.model, predictor.model.cfg
     lc = cfg.llama
+    check((lc.weight_bits, lc.kv_bits) == tuple(widths) and lc.mega_decode,
+          f"not the w{widths[0]}kv{widths[1]} megakernel config")
     data = [left_padded_batch(cfg, batch, prompt_len, dev, seed=s) for s in (0, 1)]
     cache_len = predictor._cache_len_for(prompt_len)
     t_out = prompt_len + cfg.num_multimodal_tokens - 1
@@ -1323,7 +1420,7 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
               chunk=chunk)
     stream = lambda n: [data[i % 2] for i in range(n)]
     sync(dev)
-    say("9 overlap", step="setup", seconds=f"{time.perf_counter() - t0:.2f}", batch=batch,
+    say(phase, step="setup", seconds=f"{time.perf_counter() - t0:.2f}", batch=batch,
         prompt=prompt_len, t_out=t_out, new_tokens=new_tokens, chunk=chunk,
         cache_len=cache_len)
 
@@ -1350,7 +1447,7 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
         sync(dev)
         secs[n] = time.perf_counter() - t1
     server.handoff = handoff
-    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["overlap"]}
+    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS[path]}
     peak = torch.cuda.max_memory_allocated(dev)
     steady = batch * (OVERLAP_LONG - OVERLAP_SHORT) / (secs[OVERLAP_LONG] - secs[OVERLAP_SHORT])
     check(len(outs) == OVERLAP_LONG and all(o.shape == (batch, new_tokens) for o in outs),
@@ -1369,7 +1466,7 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
         sync(dev)
         serial_s.append(time.perf_counter() - t1)
     same0 = bool((outs[0] == serial).all())
-    say("9 overlap", step="stream", steady_frames_per_s=f"{steady:.4f}",
+    say(phase, step="stream", steady_frames_per_s=f"{steady:.4f}",
         fill_inclusive_frames_per_s=f"{batch * OVERLAP_LONG / secs[OVERLAP_LONG]:.4f}",
         serial_frames_per_s=f"{batch / serial_s[-1]:.4f}",
         serial_frames_per_s_first=f"{batch / serial_s[0]:.4f}",
@@ -1378,7 +1475,7 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
         pf_steps_per_batch=batch * nc, peak_mem_bytes=peak,
         batch0_equals_serial=same0, **{k.split()[0]: v for k, v in counts.items()})
     for name, n in counts.items():
-        check(n > 0, f"{name} was not launched on the overlapped path")
+        check(n > 0, f"{name} was not launched on the {path} path")
     check(same0, "batch 0's tokens differ from generate_stepwise's")
 
     # step times: plain and pf steps that leave the state as it is, from
@@ -1424,7 +1521,7 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
     pf_bound, pf_by = k5_roofline(server.mega.weights, lc, batch + chunk, kv_valid,
                                   w_valid, chunk)
     plain_bound, plain_by = k5_roofline(server.mega.weights, lc, batch, kv_valid)
-    say("9 overlap", step="step-times", steps=n_steps,
+    say(phase, step="step-times", steps=n_steps,
         plain_ms_per_step=f"{ms['plain']:.3f},{ms['plain2']:.3f}",
         pf_ms_per_step=f"{ms['pf']:.3f},{ms['pf2']:.3f}",
         pf_launches_per_step=f"{n_ev / n_steps:.1f}",
@@ -1434,10 +1531,10 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
         k5pf_bound_ms=f"{pf_bound:.4f}", k5pf_bound_by=pf_by,
         k5_plain_bound_ms=f"{plain_bound:.4f}", k5_plain_bound_by=plain_by)
     if profile_dir:
-        profile_window(dev, f"overlap_pf_{n_steps}_steps", pf_steps, profile_dir,
-                       phase="9 profile")
-        profile_window(dev, f"overlap_plain_{n_steps}_steps", plain_steps, profile_dir,
-                       phase="9 profile")
+        profile_window(dev, f"{path}_pf_{n_steps}_steps", pf_steps, profile_dir,
+                       phase=phase.split()[0] + " profile")
+        profile_window(dev, f"{path}_plain_{n_steps}_steps", plain_steps, profile_dir,
+                       phase=phase.split()[0] + " profile")
 
     # one stream of the last timed batch (seed 1's row 1, left-padded by 8):
     # its handed-off cache and first token against the same prompt's real
@@ -1463,14 +1560,28 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
                                         pointer_table=server.mega.pointer_table)
         oc = M.apply_kv_update(oc, *new)
     pad = int(cols[0])
-    shares, scale_errs = [], []
+    shares, scale_errs, by_layer, floor_by_layer = [], [], [], []
     for name in ("k", "v"):
-        got = M.unpack_kv_int4(final[name][:, s_row, :, pad:t_out]).int()
-        want = M.unpack_kv_int4(oc[name][:, 0, :, :n]).int()
+        got = M.kv_values(final[name][:, s_row, :, pad:t_out], lc.kv_bits).int()
+        want = M.kv_values(oc[name][:, 0, :, :n], lc.kv_bits).int()
+        noisy_kv = M.kv_values(oc[name][:, 1, :, :n], lc.kv_bits).int()
         check(torch.equal(got[0], want[0]), f"handed-off {name}: layer 0 not bit-exact")
         shares.append(float(((got - want).abs() <= 1).float().mean()))
+        # each layer's share, and the same for the oracle fed the perturbed
+        # embeddings: how far rounding alone spreads the K/V with depth
+        by_layer.append(((got - want).abs() <= 1).float().mean(dim=(1, 2, 3)))
+        floor_by_layer.append(((noisy_kv - want).abs() <= 1).float().mean(dim=(1, 2, 3)))
         scale_errs.append(rel_l2(final[name + "_s"][:, s_row, :, pad:t_out],
                                  oc[name + "_s"][:, 0, :, :n]))
+    by_layer, floor_by_layer = torch.minimum(*by_layer), torch.minimum(*floor_by_layer)
+    floor_share = float(floor_by_layer.mean())
+    held = floor_by_layer > ORACLE_BIN_SHARE  # the layers the bound is above the floor in
+    shown = [*range(min(4, lc.n_layers)), *range(4, lc.n_layers, 4)]
+    say(phase, step="handoff-kv-by-layer", layers=",".join(map(str, shown)),
+        kv_within_one_bin=",".join(f"{float(by_layer[i]):.3f}" for i in shown),
+        floor_kv_within_one_bin=",".join(f"{float(floor_by_layer[i]):.3f}" for i in shown),
+        floor_overall=f"{floor_share:.5f}", layers_held_to_bin_bound=int(held.sum()),
+        worst_below_floor=f"{float((floor_by_layer - by_layer).max()):.4f}")
     # the last prompt token's hidden state, held through the first token's
     # logits: at full depth the random model spreads any difference (phase
     # 5's per-layer rounding of 3e-5 reaches 3e-2), so it is bounded by the
@@ -1479,7 +1590,7 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
     logits = server.mega.head(torch.stack([hidden, xh[0], xh[1]])).float()
     err, floor = rel_l2(logits[0], logits[1]), rel_l2(logits[2], logits[1])
     bound = LOGITS_FLOOR_FACTOR * floor
-    say("9 overlap", step="handoff-vs-tokenwise-oracle", stream=s_row, pad=pad, tokens=n,
+    say(phase, step="handoff-vs-tokenwise-oracle", stream=s_row, pad=pad, tokens=n,
         layer0_kv_bit_exact=True, kv_within_one_bin=f"{min(shares):.5f}",
         bin_bound=ORACLE_BIN_SHARE, scale_rel_l2=f"{max(scale_errs):.3e}",
         scale_bound=ORACLE_REL, hidden_rel_l2=f"{rel_l2(hidden, xh[0]):.3e}",
@@ -1488,7 +1599,14 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
         bound=f"{bound:.3e}",
         first_token_agree=int(logits[0].argmax()) == int(logits[1].argmax()),
         phase_seconds=f"{time.perf_counter() - t0:.1f}")
-    check(min(shares) > ORACLE_BIN_SHARE, f"handed-off K/V within one bin {min(shares):.5f}")
+    check(bool((by_layer[held] > ORACLE_BIN_SHARE).all()),
+          f"handed-off K/V within one bin at or below {ORACLE_BIN_SHARE} in a layer whose "
+          "floor is above it")
+    check(float((floor_by_layer - by_layer).max()) <= ORACLE_FLOOR_MARGIN,
+          "handed-off K/V within one bin below the floor's share by more than "
+          f"{ORACLE_FLOOR_MARGIN} in a layer")
+    if floor_share > ORACLE_BIN_SHARE:  # the bound is above the rounding floor
+        check(min(shares) > ORACLE_BIN_SHARE, f"handed-off K/V within one bin {min(shares):.5f}")
     check(max(scale_errs) < ORACLE_REL, f"handed-off scales rel_l2 {max(scale_errs):.3e}")
     check(bool(torch.isfinite(logits).all()), "non-finite first-token logits")
     check(err <= bound, f"first-token logits rel_l2 {err:.3e} > {bound:.3e}")
@@ -1496,13 +1614,56 @@ def phase_overlap(dev, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
 
 
 # ------------------------------------------------------------------- main
+def _build_phase(build) -> None:
+    path, secs = build.build()
+    build.library()
+    say("1 build", seconds=f"{secs:.2f}", library=os.path.relpath(path, ROOT))
+    log = os.path.join(os.path.dirname(path), "nvcc.log")
+    if os.path.exists(log):  # registers and spills of K5's instantiations
+        for line in nvcc_report(open(log).read()):
+            say("1 build", **line)
+
+
+def nvcc_report(log: str) -> list[dict]:
+    """``-Xptxas -v``'s registers, stack frame and spills of each kernel
+    compiled from ``mega_decode.cu`` (its four (WBITS, KVBITS)
+    instantiations and the W4A8/W8A8 cores), one dict a kernel, under the
+    kernel's mangled name."""
+    import re
+
+    out, name, frame, source = [], None, "", ""
+    for line in log.splitlines():
+        if " -c " in line:  # a source's nvcc command line
+            source = line.split()[-1]
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m.group(1)
+        if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line):
+            frame = "/".join(m.groups())
+        if (m := re.search(r"Used (\d+) registers", line)) and name:
+            if source.endswith("mega_decode.cu"):
+                out.append(dict(kernel=name, registers=int(m.group(1)),
+                                stack_spill_st_ld_bytes=frame))
+            name, frame = None, ""
+    # readable names where the toolkit's demangler is at hand
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool and out:
+        names = subprocess.run([tool], input="\n".join(d["kernel"] for d in out),
+                               capture_output=True, text=True).stdout.splitlines()
+        for d, readable in zip(out, names):
+            for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)", "(bool)"):
+                readable = readable.replace(noise, "")
+            d["kernel"] = readable.removeprefix("void ").split("(")[0].replace(" ", "")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="phases 3, 5, 7 and 9 also write per-kernel device time tables "
-                        "to DIR")
+                   help="phases 3, 5, 7, 9, 10 and 11 also write per-kernel device time "
+                        "tables to DIR")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -1539,35 +1700,45 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    prof = args.profile
+    mega8: dict = {}  # the int8 megakernel predictor phases 10 and 11 share
+
+    def int8_predictor():
+        if "predictor" not in mega8:
+            t = time.perf_counter()
+            mega8["predictor"] = build_mega_predictor(dev, (8, 8))
+            sync(dev)
+            say("10 mega8", step="build", seconds=f"{time.perf_counter() - t:.2f}")
+        return mega8["predictor"]
+
+    # phase: (the path whose launch counts it returns, or None; the phase)
+    runs = {
+        1: (None, lambda: _build_phase(_build)),
+        2: (None, lambda: phase_kernels(dev, summary)),
+        3: ("int8", lambda: phase_main_path(dev, profile_dir=prof)),
+        4: (None, lambda: phase_cli(dev)),
+        5: ("int4", lambda: phase_mega_path(dev, profile_dir=prof)),
+        6: (None, lambda: phase_cli(dev, quantize="int4", phase="6 cli")),
+        7: ("panoptic", lambda: phase_panoptic(dev, profile_dir=prof)),
+        8: (None, lambda: phase_panoptic_cli(dev)),
+        9: ("overlap", lambda: phase_overlap(dev, profile_dir=prof)),
+        10: ("mega8", lambda: phase_mega_path(dev, int8_predictor(), (8, 8), "10 mega8",
+                                              "mega8", profile_dir=prof)),
+        11: ("overlap8", lambda: phase_overlap(dev, int8_predictor(), (8, 8), "11 overlap8",
+                                               "overlap8", profile_dir=prof)),
+    }
     t_start = time.perf_counter()
     try:
-        if 1 in phases:
-            path, secs = _build.build()
-            _build.library()
-            say("1 build", seconds=f"{secs:.2f}", library=os.path.relpath(path, ROOT))
-        if 2 in phases:
-            phase_kernels(dev, summary)
+        for n in sorted(phases - {0}):
+            t = time.perf_counter()
+            path, run = runs[n]
+            counts = run()
+            if path:
+                by_path[path] = counts
+            if n == 11 or 11 not in phases:  # the int8 model's last phase is done
+                mega8.clear()
             release()
-        if 3 in phases:
-            by_path["int8"] = phase_main_path(dev, profile_dir=args.profile)
-            release()
-        if 4 in phases:
-            phase_cli(dev)
-            release()
-        if 5 in phases:
-            by_path["int4"] = phase_int4_path(dev, profile_dir=args.profile)
-            release()
-        if 6 in phases:
-            phase_cli(dev, quantize="int4", phase="6 cli")
-            release()
-        if 7 in phases:
-            by_path["panoptic"] = phase_panoptic(dev, profile_dir=args.profile)
-            release()
-        if 8 in phases:
-            phase_panoptic_cli(dev)
-            release()
-        if 9 in phases:
-            by_path["overlap"] = phase_overlap(dev, profile_dir=args.profile)
+            say(f"{n} phase-time", seconds=f"{time.perf_counter() - t:.1f}")
     except Failed as e:
         say("FAIL", reason=str(e).replace(" ", "_"))
         return 1

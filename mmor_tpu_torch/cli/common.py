@@ -81,28 +81,34 @@ def quantize_int8(model: MM2SG) -> MM2SG:
     return _swap_language_model(model, lcfg, state)
 
 
-def quantize_int4(model: MM2SG) -> MM2SG:
-    """Swap the language model for the megakernel serving configuration
-    (``mmor_tpu/cli/common.py:109-130``): fused qkv / gate_up, int4 weights
-    with per-(K-chunk, channel) scales (K3), ``ffn_pad`` to a multiple of
-    1024, an int4 KV cache and decode through K5. Where the K-chunk
-    (``pick_ck``) is not a multiple of 256 (the tiny preset) the megakernel
-    is off: int4 weights, an int8 KV cache (K4) and per-op decode; that
-    configuration runs only on the CPU, since K3's kernel takes groups that
-    are multiples of 256."""
+def quantize_mega(model: MM2SG, weight_bits: int, kv_bits: int) -> MM2SG:
+    """Swap the language model for a megakernel serving configuration: fused
+    qkv / gate_up, ``ffn_pad`` to a multiple of 1024, decode through K5, and
+    ``weight_bits`` / ``kv_bits`` wide weights and KV cache. (4, 4) is
+    ``--quantize int4`` (``mmor_tpu/cli/common.py:109-130``): int4 weights
+    with per-(K-chunk, channel) scales (K3 at prefill). (8, 8) is
+    ``bench.py``'s pinned megakernel rung (``bench.py:386-393``) and the JAX
+    megakernel's default: int8 weights with per-channel scales (K2 at
+    prefill) and an int8 KV cache. Where int4 weights meet a K-chunk
+    (``pick_ck``) that is not a multiple of 256 (the tiny preset) the
+    megakernel is off: int4 weights, an int8 KV cache (K4) and per-op
+    decode; that configuration runs only on the CPU, since K3's kernel takes
+    groups that are multiples of 256."""
     cfg = model.cfg
     ffn_pad = (-cfg.llama.ffn_dim) % 1024
     lcfg = dataclasses.replace(
         cfg.llama, weight_quant=True, kv_quant=True, fused_qkv=True,
-        mega_decode=True, weight_bits=4, kv_bits=4, ffn_pad=ffn_pad)
-    group = pick_ck(lcfg)
-    if group % 256:
-        lcfg = dataclasses.replace(lcfg, mega_decode=False, kv_bits=8)
-    lcfg = dataclasses.replace(lcfg, weight_group=group)
+        mega_decode=True, weight_bits=weight_bits, kv_bits=kv_bits, ffn_pad=ffn_pad)
+    group = lcfg.weight_group
+    if weight_bits == 4:
+        group = pick_ck(lcfg)
+        if group % 256:
+            lcfg = dataclasses.replace(lcfg, mega_decode=False, kv_bits=8)
+        lcfg = dataclasses.replace(lcfg, weight_group=group)
     with torch.no_grad():
         state = quantize_llama_params(
             fuse_llama_params(model.language_model.state_dict()), ffn_pad,
-            bits=4, group=group)
+            bits=weight_bits, group=group)
     return _swap_language_model(model, lcfg, state)
 
 
@@ -112,7 +118,8 @@ def build_predictor(preset_name: str, tokenizer, checkpoint: str | Path | None,
                     seed: int = 0) -> SceneGraphPredictor:
     """``quantize``: None/False = ``cfg.llama.dtype`` weights and cache;
     "int8" (or True) = packed int8 weights + int8 KV, per-op decode through
-    K2 and K4; "int4" = the megakernel configuration (``quantize_int4``).
+    K2 and K4; "int4" = the int4 megakernel configuration
+    (``quantize_mega(model, 4, 4)``).
     Runs on the card unless ``device`` is "cpu"; without a card it raises."""
     mode = {True: "int8", False: None}.get(quantize, quantize)
     if mode not in (None, "int8", "int4"):
@@ -133,7 +140,7 @@ def build_predictor(preset_name: str, tokenizer, checkpoint: str | Path | None,
     if mode == "int8":
         model = quantize_int8(model)
     elif mode == "int4":
-        model = quantize_int4(model)
+        model = quantize_mega(model, 4, 4)
     model.eval()
     return SceneGraphPredictor(cfg=model.cfg, model=model, tokenizer=tokenizer,
                                device=device, temporality=temporality)

@@ -23,9 +23,8 @@ class LlamaConfig:
     Serving configurations the port implements: per-op decode with int8 or
     int4 weights (``weight_bits`` 8 or 4, the latter with per-(K-group,
     channel) scales, ``weight_group`` rows a group) and an int8 KV cache;
-    and the decode megakernel (``mega_decode``) with int4 weights and an
-    int4 KV cache. The megakernel's int8-weight and int8-KV variants are
-    not ported (ROADMAP Queue 2, K5)."""
+    and the decode megakernel (``mega_decode``) with int8 or int4 weights
+    and an int8 or int4 KV cache (``kv_bits``), each pair of widths."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -54,11 +53,6 @@ class LlamaConfig:
         if self.weight_bits not in (4, 8) or self.kv_bits not in (4, 8):
             raise ValueError(f"weight_bits {self.weight_bits} / kv_bits "
                              f"{self.kv_bits}: each must be 4 or 8")
-        if self.mega_decode and (self.weight_bits, self.kv_bits) != (4, 4):
-            raise NotImplementedError(
-                "the decode megakernel is ported for int4 weights and an int4 "
-                "KV cache only; its weight_bits=8 / kv_bits=8 variants are "
-                "open (ROADMAP Queue 2, K5)")
         if self.kv_bits == 4 and not self.mega_decode:
             raise ValueError("an int4 KV cache is served only by the decode "
                              "megakernel (mega_decode=True)")

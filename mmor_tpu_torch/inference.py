@@ -2,7 +2,8 @@
 
 Counterpart of ``mmor_tpu/inference.py``: the same camera-slot logic,
 metadata prompts, left padding to a prompt bucket, cache capacities (16-
-granular per-op, 256-granular for the megakernel's int4 cache), ragged
+granular per-op; for the megakernel 256-granular with an int4 cache, 128
+with an int8 one), ragged
 megakernel batches padded to a multiple of 8 with repeated first rows,
 recycled cache buffers per (batch, capacity), and the reference's report.
 Raw uint8 frames go to the device at their native sizes and are
@@ -36,7 +37,7 @@ from mmor_tpu_torch.sg.prompts import (
 from mmor_tpu_torch.config import MM2SGConfig, require_device
 from mmor_tpu_torch.models.llama import make_decode_step
 from mmor_tpu_torch.models.mm2sg import MM2SG, generate_stepwise, make_prefill
-from mmor_tpu_torch.ops.mega_decode import MegaServer
+from mmor_tpu_torch.ops.mega_decode import MegaServer, mega_granule
 
 _BLACK = np.zeros((8, 8, 3), np.uint8)  # an absent view; any size will do
 
@@ -84,10 +85,10 @@ class SceneGraphPredictor:
     def _cache_len_for(self, prompt_len: int) -> int:
         need = (prompt_len + self.cfg.num_multimodal_tokens - 1
                 + self.cfg.max_new_tokens)
-        # 256-granular capacity for the int4 megakernel cache: a constraint of
-        # the TPU kernel's T-halved layout, kept so capacities match the JAX
-        # package's; 16-granular otherwise
-        granule = 256 if self.cfg.llama.mega_decode else 16
+        # the megakernel cache's granule (256 columns for int4 KV, 128 for
+        # int8: constraints of the TPU kernel's lane tiling, kept so
+        # capacities match the JAX package's); 16-granular otherwise
+        granule = mega_granule(self.cfg.llama) if self.cfg.llama.mega_decode else 16
         return -(-need // granule) * granule
 
     def _generate(self, batch) -> np.ndarray:

@@ -37,7 +37,11 @@ from mmor_tpu_torch.models.llama import (
 from mmor_tpu_torch.models.pooler import ImagePooler, MMProjector, SegmaskEncoder
 from mmor_tpu_torch.models.ptv3 import PointTransformerV3
 from mmor_tpu_torch.ops.image_preproc import preprocess_views
-from mmor_tpu_torch.ops.mega_decode import MegaServer, greedy_decode_hostloop_mega
+from mmor_tpu_torch.ops.mega_decode import (
+    MegaServer,
+    greedy_decode_hostloop_mega,
+    mega_granule,
+)
 
 
 def splice_multimodal(token_embeds, sentinel_pos, mm_embeds, attention_mask,
@@ -277,7 +281,7 @@ def generate_overlapped(model: MM2SG, batches: list[dict], *, max_cache_len: int
         raise ValueError("batches must share shape")
     t_out = t_in + model.cfg.num_multimodal_tokens - 1
     nc = -(-t_out // chunk)
-    while (nc * chunk) % 256:  # the int4 working cache's 256-column granule
+    while (nc * chunk) % mega_granule(cfg):  # the working cache's column granule
         nc += 1
     t2 = nc * chunk
     if nc * b > max_new_tokens - 1:
@@ -308,7 +312,7 @@ def generate_overlapped(model: MM2SG, batches: list[dict], *, max_cache_len: int
     full = ec.pop("full", None) or alloc_pf_full(cfg, b, t2, device)
     # the last prompt token's chunk and row. The JAX package takes row
     # t_out - 1 - (nc - 1) * chunk of the last chunk, which is that token
-    # only when no chunk was added for the 256-column granule
+    # only when no chunk was added for the column granule
     j_last, last_row = divmod(t_out - 1, chunk)
 
     outs = []

@@ -1,7 +1,8 @@
 """Decode megakernel: every decoder layer of one decode position in one call.
 
-Counterpart of ``mmor_tpu/ops/mega_decode.py`` for int4 weights and an int4
-KV cache (``wbits = kvbits = 4``), with its piggyback-prefill (``pf``) rows:
+Counterpart of ``mmor_tpu/ops/mega_decode.py`` for int8 or int4 weights
+(``wbits``) and an int8 or int4 KV cache (``kvbits``), all four pairs, with
+its piggyback-prefill (``pf``) rows:
 
 - ``mega_decode_layers`` is K5. On the card one C entry point
   (``csrc/mega_decode.cu``) runs all L layers, enqueueing a fixed sequence of
@@ -16,16 +17,20 @@ KV cache (``wbits = kvbits = 4``), with its piggyback-prefill (``pf``) rows:
   capacity T2 are the shapes of the ``pf`` tensors; the TPU tiling
   (``MegaGeometry``) has no counterpart.
 - The weights are the per-layer fused ``qkv_proj`` / ``o_proj`` /
-  ``gate_up_proj`` / ``down_proj`` (K/8, N) packed stacks the prefill reads
-  (``MegaWeights``), walked in place. The TPU package's tapes
-  (``build_tapes``) and its tiling fields exist for Mosaic and have no
-  counterpart here; the fused ``gate_up`` is ``[gate + pad | up + pad]``, so
-  gate column j pairs with up column j.
-- The int4 KV cache is the port's own layout: (L, B, H, T, Dh/2) uint8, two
-  biased head-dim values a byte (low nibble = even channel), with (L, B, H,
-  T) bf16 per-position scales. The decode write of a position is a plain
-  store (``apply_kv_update``), where the TPU layout shares each nibble word
-  with position t +- T/2.
+  ``gate_up_proj`` / ``down_proj`` packed stacks the prefill reads
+  (``MegaWeights``), walked in place: int4 (K/8, N) words with (K/ck, N)
+  scales, or int8 (K/4, N) words with (N,) per-channel scales, which apply
+  after the chunk folds (W8A8). The TPU package's tapes (``build_tapes``)
+  and its tiling fields exist for Mosaic and have no counterpart here; the
+  fused ``gate_up`` is ``[gate + pad | up + pad]``, so gate column j pairs
+  with up column j.
+- The KV caches are the port's own layouts, with (L, B, H, T) bf16
+  per-position scales: int8 (L, B, H, T, Dh), the per-op path's cache, where
+  the TPU package D-packs keys and T-packs values; int4 (L, B, H, T, Dh/2)
+  uint8, two biased head-dim values a byte (low nibble = even channel). The
+  cache's last axis tells the widths apart (``kv_bits_of``). The decode
+  write of a position is a plain store (``apply_kv_update``), where the TPU
+  layouts share each word with other positions.
 - ``MegaServer``, ``make_mega_decode_step``, ``compact_cache`` and
   ``greedy_decode_hostloop_mega`` (EOS compaction into 8-multiple batch
   buckets every 64 steps) mirror the JAX serving loop.
@@ -40,11 +45,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mmor_tpu_torch.config import LlamaConfig
+from mmor_tpu_torch.config import LlamaConfig, pick_ck
 from mmor_tpu_torch.ops import _build
 from mmor_tpu_torch.ops import quantized_matmul as qmm
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def mega_granule(cfg: LlamaConfig) -> int:
+    """The column granule of the megakernel's caches (the decode cache's
+    capacity and the pf working cache's T2): 256 for an int4 KV cache, 128
+    for an int8 one. Constraints of the TPU kernel's lane tiling
+    (``mega_decode.py:200-215``, ``inference.py:101-105``, ``mm2sg.py:506``),
+    kept so that capacities and step counts equal the JAX package's; the
+    CUDA kernels need neither."""
+    return 256 if cfg.kv_bits == 4 else 128
 
 
 # ------------------------------------------------------------ int4 KV cache
@@ -77,14 +92,38 @@ def dequantize_kv_int4(p: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return unpack_kv_int4(p).float() * scale.float()[..., None]
 
 
+def kv_bits_of(k: torch.Tensor, head_dim: int) -> int:
+    """The width of a K/V stack from its last axis: Dh int8 values, or Dh/2
+    bytes of int4 nibble pairs (the JAX package tells its widths apart by
+    the packed axis, ``mega_decode.py:1621``)."""
+    if k.shape[-1] == head_dim:
+        return 8
+    if 2 * k.shape[-1] == head_dim:
+        return 4
+    raise ValueError(f"a K/V stack's last axis {k.shape[-1]} is neither the head "
+                     f"dim {head_dim} (int8) nor half of it (int4)")
+
+
+def kv_values(k: torch.Tensor, bits: int) -> torch.Tensor:
+    """A K/V stack's signed values (..., Dh): the int8 stack itself, or the
+    unpacked int4 nibble pairs."""
+    return k if bits == 8 else unpack_kv_int4(k)
+
+
 def apply_kv_update(cache: dict, knew, knew_s, vnew, vnew_s) -> dict:
     """Write the step's new K/V column at ``write_pos`` and advance the
-    masks (``mega_decode.py:1607-1677``, int4 branch). The kernel's int8
-    column is requantized to the int4 grid as clip(round(k8 * f32(7/127)),
-    +-7) with the scale times f32(127/7) stored in bf16. The cache stacks are
-    updated in place; the returned dict carries the new positions."""
+    masks (``mega_decode.py:1607-1677``). An int8 cache stores the kernel's
+    int8 column and its scale in bf16. An int4 cache takes the column
+    requantized to the int4 grid as clip(round(k8 * f32(7/127)), +-7) with
+    the scale times f32(127/7) stored in bf16. The cache stacks are updated
+    in place; the returned dict carries the new positions."""
     wp = cache["write_pos"]
+    bits = kv_bits_of(cache["k"], knew.shape[-1])
     for name, q8, s8 in (("k", knew, knew_s), ("v", vnew, vnew_s)):
+        if bits == 8:
+            cache[name][:, :, :, wp] = q8
+            cache[name + "_s"][:, :, :, wp] = s8.to(torch.bfloat16)
+            continue
         # an f32 tensor times a Python float multiplies by the f32 constant
         q4 = torch.clamp(torch.round(q8.float() * (7.0 / 127.0)), -7, 7)
         cache[name][:, :, :, wp] = pack_kv_int4((q4 + 8).to(torch.uint8))
@@ -113,28 +152,31 @@ _SLOTS = (("qkv_proj", "w_p"), ("qkv_proj", "scale"), ("o_proj", "w_p"),
 @dataclass
 class MegaWeights:
     """The decoder weights K5 walks: ``layers[slot][l]`` are layer l's packed
-    (K/8, N) int32 words or (K/group, N) f32 scales of the slots in
-    ``_SLOTS`` order (the ``LlamaModel``'s own buffers, not copies);
-    ``norms`` (L, 2, D) f32 are the attention and MLP RMSNorm scales;
-    ``group`` is the int4 scale group, equal to the K-chunk ``pick_ck``;
-    ``ffn`` the padded MLP width."""
+    words and scales of the slots in ``_SLOTS`` order (the ``LlamaModel``'s
+    own buffers, not copies): at ``wbits`` 4, (K/8, N) int32 words and
+    (K/group, N) f32 scales; at ``wbits`` 8, (K/4, N) int32 words and (N,)
+    f32 per-channel scales. ``norms`` (L, 2, D) f32 are the attention and
+    MLP RMSNorm scales; ``group`` is the activation K-chunk ``pick_ck``,
+    which is also the int4 scale group; ``ffn`` the padded MLP width."""
 
     layers: list[list[torch.Tensor]]
     norms: torch.Tensor
     group: int
     ffn: int
     heads: int
+    wbits: int = 4
 
     @classmethod
     def from_model(cls, lm) -> "MegaWeights":
         cfg = lm.cfg
-        if not (cfg.fused_qkv and cfg.weight_quant and cfg.weight_bits == 4):
-            raise ValueError("the megakernel walks fused int4 weights")
+        if not (cfg.fused_qkv and cfg.weight_quant):
+            raise ValueError("the megakernel walks fused int8 or int4 weights")
         layers = [[getattr(getattr(b, mod), leaf) for b in lm.blocks] for mod, leaf in _SLOTS]
         norms = torch.stack([torch.stack([b.attn_norm.scale, b.mlp_norm.scale])
                              for b in lm.blocks]).detach().float()
-        return cls(layers, norms, cfg.weight_group, cfg.ffn_dim + cfg.ffn_pad,
-                   cfg.n_heads)
+        group = cfg.weight_group if cfg.weight_bits == 4 else pick_ck(cfg)
+        return cls(layers, norms, group, cfg.ffn_dim + cfg.ffn_pad, cfg.n_heads,
+                   cfg.weight_bits)
 
     def pointer_table(self) -> ctypes.Array:
         """Host array of the device pointers, slot-major (slot * L + layer),
@@ -144,9 +186,13 @@ class MegaWeights:
         shapes = ((dim, 3 * dim), (dim, dim), (dim, 2 * self.ffn), (self.ffn, dim))
         if self.norms.dtype != torch.float32 or len(self.layers) != 2 * len(shapes):
             raise ValueError("MegaWeights: norms must be f32 (L, 2, D), with 8 weight slots")
+        if self.wbits not in (4, 8):
+            raise ValueError(f"MegaWeights: wbits {self.wbits}, not 4 or 8")
         for i, (k, n) in enumerate(shapes):
-            for want, dtype, slot in (((k // 8, n), torch.int32, self.layers[2 * i]),
-                                      ((k // g, n), torch.float32, self.layers[2 * i + 1])):
+            words = (k // 8, n) if self.wbits == 4 else (k // 4, n)
+            scales = (k // g, n) if self.wbits == 4 else (n,)
+            for want, dtype, slot in ((words, torch.int32, self.layers[2 * i]),
+                                      (scales, torch.float32, self.layers[2 * i + 1])):
                 if len(slot) != n_layers or any(
                         t.device != device or t.dtype != dtype or tuple(t.shape) != want
                         for t in slot):
@@ -183,6 +229,22 @@ def _w4a8_chunks(q: torch.Tensor, rs: torch.Tensor, w_p: torch.Tensor,
     return acc
 
 
+def _w8a8_chunks(q: torch.Tensor, rs: torch.Tensor, w_p: torch.Tensor,
+                 scale: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Int-valued activations q (rows, K) with per-(row, chunk) scales rs
+    (rows, K/chunk) times one layer's int8 weights: each chunk's exact dot
+    times its row scale, folded in chunk order as acc += dot * rs, then the
+    per-channel scale (``mega_decode.py:1442-1444``, the kernel's order in
+    ``csrc/w8a8.cuh``)."""
+    w8 = qmm.unpack_int8_rows(w_p).double()
+    acc = torch.zeros(q.shape[0], w_p.shape[1], dtype=torch.float32, device=q.device)
+    for c in range(q.shape[1] // chunk):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        dot = (q[:, rows].double() @ w8[rows]).float()
+        acc = acc + dot * rs[:, c:c + 1]
+    return acc * scale[None, :]
+
+
 def _rmsnorm(x: torch.Tensor, norm: torch.Tensor, eps: float) -> torch.Tensor:
     """x * r * norm with r = 1 / sqrt(mean(x^2) + eps) taken in double (as
     the kernel does), so the f32 result does not depend on the sum's order."""
@@ -191,36 +253,41 @@ def _rmsnorm(x: torch.Tensor, norm: torch.Tensor, eps: float) -> torch.Tensor:
     return x * r * norm
 
 
-def _attention_plain(q8, qs, k8, ks_cur, vcur, k_int, ks, v_int, vs, mask):
+def _attention_plain(q8, qs, k8, ks_cur, vcur, k_int, ks, v_int, vs, mask, sums):
     """One layer's attention, ``mega_decode.py:1522-1534``: int8 queries
-    (B, H, dh) with scales qs (B, H, 1) against the int4 cache values
+    (B, H, dh) with scales qs (B, H, 1) against the int8 or int4 cache values
     (B, H, T, dh) with scales (B, H, T), and the current token's term inline:
     its logit is the exact int8 dot q8 . k8 times ks_cur and qs (the
     reference sums q8 * (k8 * ks_cur), equal up to f32 rounding), its value
-    vcur dequantized. Returns (B, H, dh) f32."""
+    vcur dequantized. The softmax's exps and its sum are taken in ``sums``
+    (f32 at int4, double at int8, as the kernel does) and rounded to f32.
+    Returns (B, H, dh) f32."""
     logits = torch.einsum("bhd,bhtd->bht", q8.double(), k_int.double()).float()
     logits = logits * qs * ks
     logits = torch.where(mask[:, None, :] != 0, logits, NEG_INF)
     lcur = (q8 * k8).sum(dim=-1, keepdim=True) * ks_cur * qs
     mmax = torch.maximum(logits.amax(dim=-1, keepdim=True), lcur)
-    w = torch.exp(logits - mmax)
-    wc = torch.exp(lcur - mmax)
-    denom = w.sum(dim=-1, keepdim=True) + wc
+    w = torch.exp((logits - mmax).to(sums)).float()
+    wc = torch.exp((lcur - mmax).to(sums)).float()
+    denom = (w.to(sums).sum(dim=-1, keepdim=True) + wc.to(sums)).float()
     w8, wrs = _quant_rows_f32(w * vs)
     ov = torch.einsum("bht,bhtd->bhd", w8.double(), v_int.double()).float() * wrs
     return (ov + wc * vcur) / denom
 
 
-def _chunk_attention_plain(q8, qs, k8, ks, vcur, k_int, k_s, v_int, v_s, mask, amask):
+def _chunk_attention_plain(q8, qs, k8, ks, vcur, k_int, k_s, v_int, v_s, mask, amask,
+                           sums):
     """The pf chunk's attention, ``mega_decode.py:1536-1560``: int8 queries
     (c, H, dh) with scales qs (c, H, 1) against the stream's working cache
-    (int4 values (H, T2, dh), scales (H, T2)) where ``mask`` (T2,) is set,
-    plus an inline causal block over the chunk's own columns j <= i with
-    ``amask[j]`` set: its logits are the exact int8 dots q8_i . k8_j times
-    ks_j and qs_i (as the decode rows' current-token term), its values the
-    exact dequantized vcur (c, H, dh). One softmax over both parts; the
-    working-cache weights times the value scales quantize to int8 per (row,
-    head), the inline weights stay f32. Returns (c, H, dh) f32."""
+    (int8 or int4 values (H, T2, dh), scales (H, T2)) where ``mask`` (T2,) is
+    set, plus an inline causal block over the chunk's own columns j <= i
+    with ``amask[j]`` set: its logits are the exact int8 dots q8_i . k8_j
+    times ks_j and qs_i (as the decode rows' current-token term), its values
+    the exact dequantized vcur (c, H, dh). One softmax over both parts, its
+    exps and sums in ``sums`` (as ``_attention_plain``); the working-cache
+    weights times the value scales quantize to int8 per (row, head), the
+    inline weights stay f32 (their sum with the values in ``sums``).
+    Returns (c, H, dh) f32."""
     c = q8.shape[0]
     lg = torch.einsum("chd,htd->cht", q8.double(), k_int.double()).float()
     lg = torch.where(mask[None, None, :] != 0, lg * qs * k_s[None], NEG_INF)
@@ -230,12 +297,13 @@ def _chunk_attention_plain(q8, qs, k8, ks, vcur, k_int, k_s, v_int, v_s, mask, a
     visible = (j[None, :] <= j[:, None]) & (amask[None, :] != 0)  # (i, j)
     li = torch.where(visible[:, None, :], li, NEG_INF)
     mmax = torch.maximum(lg.amax(dim=-1, keepdim=True), li.amax(dim=-1, keepdim=True))
-    w = torch.exp(lg - mmax)
-    wi = torch.exp(li - mmax)
-    denom = w.sum(dim=-1, keepdim=True) + wi.sum(dim=-1, keepdim=True)
+    w = torch.exp((lg - mmax).to(sums)).float()
+    wi = torch.exp((li - mmax).to(sums)).float()
+    denom = (w.to(sums).sum(dim=-1, keepdim=True)
+             + wi.to(sums).sum(dim=-1, keepdim=True)).float()
     w8, wrs = _quant_rows_f32(w * v_s[None])
     ov = torch.einsum("cht,htd->chd", w8.double(), v_int.double()).float() * wrs
-    ovi = torch.einsum("ihj,jhd->ihd", wi, vcur)
+    ovi = torch.einsum("ihj,jhd->ihd", wi.to(sums), vcur.to(sums)).float()
     return (ov + ovi) / denom
 
 
@@ -244,16 +312,21 @@ def mega_decode_layers_plain(x: torch.Tensor, weights: MegaWeights, cache: dict,
                              eps: float = 1e-5, sm_scale: float | None = None,
                              pf: dict | None = None):
     """Plain PyTorch K5: the arithmetic chain of
-    ``mega_decode_layers_reference`` (``wbits = kvbits = 4``) with the
-    kernel's fold order. Weights and the cache dequantize one layer at a
-    time: the whole 7B stack in f32 would take ~26 GB
-    (``mega_decode.py:1424-1427``). Returns (x_out (B, D) bf16, knew
-    (L, B, H, dh) int8, knew_s (L, B, H) f32, vnew, vnew_s).
+    ``mega_decode_layers_reference`` with the kernel's fold order, at the
+    weights' width (``weights.wbits``) and the cache's (``kv_bits_of``); at
+    an int8 cache the softmax's exps and sums are taken in double and
+    rounded to f32, as the kernel takes them, so the two agree whatever the
+    order of their sums.
+    Weights and the cache dequantize one layer at a time: the whole 7B stack
+    in f32 would take ~26 GB (``mega_decode.py:1424-1427``). Returns (x_out
+    (B, D) bf16, knew (L, B, H, dh) int8, knew_s (L, B, H) f32, vnew,
+    vnew_s).
 
     ``pf`` (the reference's dict): x (c, D) bf16 chunk embeddings, cos/sin
     (c, dh) at the chunk's positions, amask (c,) int32, mask (T2,) int32 (the
     working-cache columns the chunk sees), and the stream's working cache k/v
-    (L, H, T2, dh/2) uint8 with k_s/v_s (L, H, T2) bf16. The chunk rows ride
+    (L, H, T2, dh) int8 or (L, H, T2, dh/2) uint8, the decode cache's width,
+    with k_s/v_s (L, H, T2) bf16. The chunk rows ride
     the row-wise chain after the decode rows (``_chunk_attention_plain``), so
     the decode rows' outputs do not change; a sixth element
     dict(x (c, D) bf16, knew/vnew (L, c, H, dh) int8, knew_s/vnew_s (L, c, H)
@@ -262,6 +335,7 @@ def mega_decode_layers_plain(x: torch.Tensor, weights: MegaWeights, cache: dict,
     n_layers, _, heads, t_cap, _ = cache["k"].shape
     dh = dim // heads
     ck, half = weights.group, dh // 2
+    kvbits = kv_bits_of(cache["k"], dh)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(dh)
     x, cos, sin = x.float(), cos.float(), sin.float()
@@ -279,11 +353,21 @@ def mega_decode_layers_plain(x: torch.Tensor, weights: MegaWeights, cache: dict,
         q, rs = _quant_rows_f32(h.reshape(rows, -1, ck))
         return q.reshape(rows, -1), rs[..., 0]
 
+    def matmul(q, rs, w_p, scale, chunk=ck):
+        if weights.wbits == 4:
+            return _w4a8_chunks(q, rs, w_p, scale, ck, chunk)
+        return _w8a8_chunks(q, rs, w_p, scale, chunk)
+
+    def values(t):
+        return kv_values(t, kvbits).float()
+
+    sums = torch.float64 if kvbits == 8 else torch.float32  # the kernel's softmax sums
+
     knews, knew_ss, vnews, vnew_ss = [], [], [], []
     for li in range(n_layers):
         wq, sq, wo, so, wg, sg, wd, sd = (slot[li] for slot in weights.layers)
         h = _rmsnorm(x, weights.norms[li, 0], eps)
-        qkv = _w4a8_chunks(*chunk_quant(h), wq, sq, ck, ck).reshape(rows, 3, heads, dh)
+        qkv = matmul(*chunk_quant(h), wq, sq).reshape(rows, 3, heads, dh)
         q, k, v = rope(qkv[:, 0]), rope(qkv[:, 1]), qkv[:, 2]
         q8, qs = _quant_rows_f32(q * sm_scale)
         k8, ks = _quant_rows_f32(k)
@@ -295,21 +379,21 @@ def mega_decode_layers_plain(x: torch.Tensor, weights: MegaWeights, cache: dict,
         vnew_ss.append(vs[..., 0])
         attn = _attention_plain(
             q8[:b], qs[:b], k8[:b], ks[:b], vcur[:b],
-            unpack_kv_int4(cache["k"][li]), cache["k_s"][li].float(),
-            unpack_kv_int4(cache["v"][li]), cache["v_s"][li].float(), cache["kv_mask"])
+            values(cache["k"][li]), cache["k_s"][li].float(),
+            values(cache["v"][li]), cache["v_s"][li].float(), cache["kv_mask"], sums)
         if pf is not None:
             attn = torch.cat([attn, _chunk_attention_plain(
                 q8[b:], qs[b:], k8[b:], ks[b:], vcur[b:],
-                unpack_kv_int4(pf["k"][li]), pf["k_s"][li].float(),
-                unpack_kv_int4(pf["v"][li]), pf["v_s"][li].float(), pf["mask"],
-                pf["amask"])])
+                values(pf["k"][li]), pf["k_s"][li].float(),
+                values(pf["v"][li]), pf["v_s"][li].float(), pf["mask"],
+                pf["amask"], sums)])
         a8, ars = _quant_rows_f32(attn)  # per (row, head)
-        x2 = x + _w4a8_chunks(a8.reshape(rows, dim), ars[..., 0], wo, so, ck, dh)
+        x2 = x + matmul(a8.reshape(rows, dim), ars[..., 0], wo, so, dh)
         h2 = _rmsnorm(x2, weights.norms[li, 1], eps)
-        gu = _w4a8_chunks(*chunk_quant(h2), wg, sg, ck, ck)
+        gu = matmul(*chunk_quant(h2), wg, sg)
         gate, up = gu[:, :weights.ffn], gu[:, weights.ffn:]
         m = gate * torch.sigmoid(gate) * up
-        x = x2 + _w4a8_chunks(*chunk_quant(m), wd, sd, ck, ck)
+        x = x2 + matmul(*chunk_quant(m), wd, sd)
     cols = (torch.stack(knews).to(torch.int8), torch.stack(knew_ss),
             torch.stack(vnews).to(torch.int8), torch.stack(vnew_ss))
     out = (x[:b].to(torch.bfloat16), *(t[:, :b].contiguous() for t in cols))
@@ -323,7 +407,8 @@ def mega_decode_layers_plain(x: torch.Tensor, weights: MegaWeights, cache: dict,
 # ------------------------------------------------------------------- kernel
 def alloc_scratch(weights: MegaWeights, rows: int, device) -> dict:
     """The intermediate buffers K5's kernels pass between phases, for
-    ``rows`` activation rows (the batch, plus the chunk with ``pf``)."""
+    ``rows`` activation rows (the batch, plus the chunk with ``pf``), at
+    either weight width (both quantize activations per (row, K-chunk))."""
     dim = weights.norms.shape[-1]
     width = max(dim, weights.ffn)
     f32 = dict(dtype=torch.float32, device=device)
@@ -353,53 +438,61 @@ def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
                        sm_scale: float | None = None, scratch: dict | None = None,
                        pointer_table: ctypes.Array | None = None, pf: dict | None = None):
     """K5: x (B, D) bf16 hidden states of one decode position through every
-    decoder layer, against the int4 cache. Returns (x_out (B, D) bf16 before
-    the final norm, knew (L, B, H, dh) int8, knew_s (L, B, H) f32, vnew,
-    vnew_s); the caller owns the cache update (``apply_kv_update``). With
-    ``pf`` (``mega_decode_layers_plain``'s dict) the chunk's rows ride along
-    and a sixth element carries their outputs.
+    decoder layer, against the int8 or int4 cache. Returns (x_out (B, D)
+    bf16 before the final norm, knew (L, B, H, dh) int8, knew_s (L, B, H)
+    f32, vnew, vnew_s); the caller owns the cache update
+    (``apply_kv_update``). With ``pf`` (``mega_decode_layers_plain``'s dict)
+    the chunk's rows ride along and a sixth element carries their outputs.
 
     CPU: ``mega_decode_layers_plain``. CUDA: the ``csrc/mega_decode.cu``
-    entry point (head_dim 128, K-chunk a multiple of 256 up to 1024, at
-    most 8 chunks a model row), with ``scratch`` from ``alloc_scratch`` for
-    B (+ c) rows and the weights' ``pointer_table`` made here when not given.
-    Counts its launches in ``mega_decode_layers.launches``, those with pf rows
-    (K5-pf) in ``mega_decode_layers.pf_launches``."""
+    entry point at the weights' and the cache's widths (head_dim 128, a
+    K-chunk of at most 1024 that is a multiple of 256 for int4 weights and of
+    128 for int8 ones, at most 8 chunks a model row), with ``scratch`` from
+    ``alloc_scratch`` for B (+ c) rows and the weights' ``pointer_table``
+    made here when not given. The cache's dtype must match its width (int8,
+    or uint8 nibble pairs). Counts its launches by variant: int4 weights and
+    cache in ``mega_decode_layers.launches`` (K5) and, with pf rows,
+    ``pf_launches`` (K5-pf); any int8 width in ``int8_launches`` (K5-int8)
+    and ``int8_pf_launches`` (K5-int8 with pf rows)."""
     if x.device.type == "cpu":
         return mega_decode_layers_plain(x, weights, cache, cos, sin, eps=eps,
                                         sm_scale=sm_scale, pf=pf)
     if x.device.type != "cuda":
         raise ValueError(f"mega_decode_layers: x is on {x.device}")
     b, dim = x.shape
-    n_layers, cb, heads, t_cap, half_dh = cache["k"].shape
-    dh = 2 * half_dh
+    n_layers, cb, heads, t_cap, kv_last = cache["k"].shape
+    dh = dim // heads
+    kvbits = kv_bits_of(cache["k"], dh)
     if (x.dtype != torch.bfloat16 or cb != b or dim != heads * dh
             or tuple(cos.shape) != (b, dh) or tuple(sin.shape) != (b, dh)
             or tuple(cache["kv_mask"].shape) != (b, t_cap)):
         raise ValueError(f"mega_decode_layers: x {tuple(x.shape)} {x.dtype}, cos/sin "
                          f"{tuple(cos.shape)} vs cache {tuple(cache['k'].shape)}")
-    if (dh != 128 or weights.group % 256 or weights.group > 1024
+    step = 256 if weights.wbits == 4 else 128
+    if (dh != 128 or weights.group % step or weights.group > 1024
             or dim > 8 * weights.group):
         raise ValueError(f"mega_decode_layers: the kernel takes head_dim 128, a "
-                         f"K-chunk of 256..1024 in steps of 256 and at most 8 chunks "
-                         f"a model row (dh={dh}, group={weights.group}, dim={dim})")
-    for name, dtype in (("k", torch.uint8), ("v", torch.uint8), ("k_s", torch.bfloat16),
+                         f"K-chunk of at most 1024 in steps of {step} and at most 8 "
+                         f"chunks a model row (dh={dh}, group={weights.group}, dim={dim})")
+    kv_dtype = torch.int8 if kvbits == 8 else torch.uint8
+    for name, dtype in (("k", kv_dtype), ("v", kv_dtype), ("k_s", torch.bfloat16),
                         ("v_s", torch.bfloat16), ("kv_mask", torch.int32)):
         t = cache[name]
         if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"mega_decode_layers: cache[{name!r}] must be a contiguous "
-                             f"{dtype} tensor on {x.device}")
+                             f"{dtype} tensor on {x.device} (an int{kvbits} cache), got "
+                             f"{t.dtype}")
     c = t2 = 0
     if pf is not None:
         c, t2 = pf["x"].shape[0], pf["mask"].shape[0]
-        wshape = (n_layers, heads, t2, half_dh)
+        wshape = (n_layers, heads, t2, kv_last)
         _check_operands("mega_decode_layers pf", x.device, (
             ("x", pf["x"], torch.bfloat16, (c, dim)),
             ("cos", pf["cos"], torch.float32, (c, dh)),
             ("sin", pf["sin"], torch.float32, (c, dh)),
             ("amask", pf["amask"], torch.int32, (c,)),
             ("mask", pf["mask"], torch.int32, (t2,)),
-            ("k", pf["k"], torch.uint8, wshape), ("v", pf["v"], torch.uint8, wshape),
+            ("k", pf["k"], kv_dtype, wshape), ("v", pf["v"], kv_dtype, wshape),
             ("k_s", pf["k_s"], torch.bfloat16, wshape[:-1]),
             ("v_s", pf["v_s"], torch.bfloat16, wshape[:-1])))
         if c < 1 or t2 < 1:
@@ -439,18 +532,21 @@ def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
         p(sin), *(p(scratch[k]) for k in ("x_res", "x2", "hq", "hrs", "qkv", "a8",
                                           "ars", "mbuf")),
         p(x_out), p(knew), p(knew_s), p(vnew), p(vnew_s), *pf_in, *pf_out, n_layers, b,
-        dim, heads, weights.ffn, t_cap, weights.group, c, t2, float(eps), float(sm_scale),
-        _build.stream())
+        dim, heads, weights.ffn, t_cap, weights.group, c, t2, weights.wbits, kvbits,
+        float(eps), float(sm_scale), _build.stream())
     _build.check(err, "mega_decode_layers")
+    int8 = "int8_" if (weights.wbits, kvbits) != (4, 4) else ""
+    counter = int8 + ("launches" if pf is None else "pf_launches")
+    setattr(mega_decode_layers, counter, getattr(mega_decode_layers, counter) + 1)
     if pf is None:
-        mega_decode_layers.launches += 1
         return x_out, knew, knew_s, vnew, vnew_s
-    mega_decode_layers.pf_launches += 1
     return x_out, knew, knew_s, vnew, vnew_s, out
 
 
 mega_decode_layers.launches = 0
 mega_decode_layers.pf_launches = 0
+mega_decode_layers.int8_launches = 0
+mega_decode_layers.int8_pf_launches = 0
 
 
 # ------------------------------------------------------------------ serving

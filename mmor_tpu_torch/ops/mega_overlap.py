@@ -1,16 +1,16 @@
 """Piggyback-prefill serving glue: the next batch's LLaMA prefill rides the
 current batch's decode steps, inside K5.
 
-Counterpart of ``mmor_tpu/ops/mega_overlap.py`` (int4 weights, int4 KV) in the
-port's cache layout. Each decode step of batch N carries ``chunk`` consecutive
-prompt tokens of one stream of batch N+1 as extra rows of K5
-(``mega_decode_layers(..., pf=...)``):
+Counterpart of ``mmor_tpu/ops/mega_overlap.py`` (int8 or int4 weights, an int8
+or int4 KV cache) in the port's cache layouts. Each decode step of batch N
+carries ``chunk`` consecutive prompt tokens of one stream of batch N+1 as
+extra rows of K5 (``mega_decode_layers(..., pf=...)``):
 
-- the chunk's K/V accumulate in that stream's working cache, (L, H, T2, Dh/2)
-  uint8 nibble pairs with (L, H, T2) bf16 scales (``alloc_pf_work``,
-  ``apply_pf_work_update``);
+- the chunk's K/V accumulate in that stream's working cache, (L, H, T2, Dh)
+  int8 or (L, H, T2, Dh/2) uint8 nibble pairs, with (L, H, T2) bf16 scales
+  (``alloc_pf_work``, ``apply_pf_work_update``);
 - after the stream's last chunk the working cache is copied into the full
-  prefill buffer, (L, B, H, T2, Dh/2) with (L, B, H, T2) scales, the decode
+  prefill buffer, (L, B, H, T2, ...) with (L, B, H, T2) scales, the decode
   cache's own order (``flush_pf_work``), and re-zeroed. The working cache is a
   buffer of its own, not a view of the full buffer's stream row: the kernel
   then reads one contiguous (L, H, T2) stack, and the copy costs one ~50 MB
@@ -19,8 +19,8 @@ prompt tokens of one stream of batch N+1 as extra rows of K5
   (``pf_full_to_decode_cache``): a copy of its T2 columns into the retiring
   batch's t_cap-capacity stacks, the columns past T2 zeroed and their scales
   set to 1.0. The TPU package re-pairs its T-halved nibble words here
-  (``repack_k_int4`` / ``repack_v_int4``); the port's layout pairs two
-  head-dim channels of one position in a byte, so no relayout is needed.
+  (``repack_k_int4`` / ``repack_v_int4``) and pads its packed int8 words; the
+  port's layouts keep each position's row whole, so no relayout is needed.
 """
 
 from __future__ import annotations
@@ -31,35 +31,48 @@ from mmor_tpu_torch.config import LlamaConfig
 from mmor_tpu_torch.ops import mega_decode as md
 
 
+def _kv_stacks(cfg: LlamaConfig, lead: tuple, device) -> dict:
+    """Zeroed K/V stacks (*lead, Dh) int8 or (*lead, Dh/2) uint8 at the
+    cache width ``cfg.kv_bits``, with scales 1: the TPU package's zeroed
+    int32 words (an int4 zero byte is the value -8, which the working-cache
+    mask excludes)."""
+    if cfg.kv_bits == 8:
+        shape, dtype = (*lead, cfg.head_dim), torch.int8
+    else:
+        shape, dtype = (*lead, cfg.head_dim // 2), torch.uint8
+    return dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                k_s=torch.ones(lead, dtype=torch.bfloat16, device=device),
+                v=torch.zeros(shape, dtype=dtype, device=device),
+                v_s=torch.ones(lead, dtype=torch.bfloat16, device=device))
+
+
 def alloc_pf_work(cfg: LlamaConfig, t2: int, device) -> dict:
-    """A zeroed single-stream working cache: nibble bytes 0 (the value -8,
-    which the working-cache mask excludes) and scales 1, as the TPU
-    package's zeroed int32 words."""
-    shape = (cfg.n_layers, cfg.n_heads, t2, cfg.head_dim // 2)
-    return dict(k=torch.zeros(shape, dtype=torch.uint8, device=device),
-                k_s=torch.ones(shape[:-1], dtype=torch.bfloat16, device=device),
-                v=torch.zeros(shape, dtype=torch.uint8, device=device),
-                v_s=torch.ones(shape[:-1], dtype=torch.bfloat16, device=device))
+    """A zeroed single-stream working cache, (L, H, T2, ...)."""
+    return _kv_stacks(cfg, (cfg.n_layers, cfg.n_heads, t2), device)
 
 
 def alloc_pf_full(cfg: LlamaConfig, batch: int, t2: int, device) -> dict:
     """The all-streams prefill buffer, flushed into once a stream: the
     decode cache's layout at T2 columns."""
-    shape = (cfg.n_layers, batch, cfg.n_heads, t2, cfg.head_dim // 2)
-    return dict(k=torch.zeros(shape, dtype=torch.uint8, device=device),
-                k_s=torch.ones(shape[:-1], dtype=torch.bfloat16, device=device),
-                v=torch.zeros(shape, dtype=torch.uint8, device=device),
-                v_s=torch.ones(shape[:-1], dtype=torch.bfloat16, device=device))
+    return _kv_stacks(cfg, (cfg.n_layers, batch, cfg.n_heads, t2), device)
 
 
 def apply_pf_work_update(work: dict, pfout: dict, wp: int) -> dict:
     """Write a chunk's K/V columns [wp, wp + c) into the working cache in
-    place (``mega_overlap.py:79-143``, int4 branch). ``pfout`` is K5's sixth
-    element: knew/vnew (L, c, H, dh) int8 and scales (L, c, H) f32,
-    requantized to the int4 grid as clip(round(k8 * f32(7/127)), +-7) with
-    the scale times f32(127/7) stored in bf16, as ``md.apply_kv_update``."""
+    place (``mega_overlap.py:79-143``), as ``md.apply_kv_update`` writes a
+    decode column. ``pfout`` is K5's sixth element: knew/vnew (L, c, H, dh)
+    int8 and scales (L, c, H) f32. An int8 working cache stores them, the
+    scales in bf16; an int4 one takes them requantized to the int4 grid as
+    clip(round(k8 * f32(7/127)), +-7) with the scale times f32(127/7) stored
+    in bf16."""
     c = pfout["knew"].shape[1]
+    bits = md.kv_bits_of(work["k"], pfout["knew"].shape[-1])
     for name in ("k", "v"):
+        if bits == 8:
+            work[name][:, :, wp:wp + c] = pfout[name + "new"].transpose(1, 2)
+            work[name + "_s"][:, :, wp:wp + c] = pfout[name + "new_s"].to(
+                torch.bfloat16).transpose(1, 2)
+            continue
         q4 = torch.clamp(torch.round(pfout[name + "new"].float() * (7.0 / 127.0)), -7, 7)
         work[name][:, :, wp:wp + c] = md.pack_kv_int4(
             (q4 + 8).to(torch.uint8)).transpose(1, 2)
@@ -160,14 +173,15 @@ class OverlapServer:
 
     def __init__(self, cfg: LlamaConfig, lm, *, batch: int, t_cap: int, t2: int,
                  chunk: int = 128):
-        if cfg.kv_bits != 4 or cfg.weight_bits != 4:
-            raise ValueError("overlapped serving takes the int4 megakernel configuration")
-        if chunk % 32 or t2 % 256 or t2 % chunk or t2 > t_cap:
-            # the TPU kernel's shape rules, kept so that T2 and the step
-            # count equal the JAX package's ((t2 // 2) % chunk, a rule of
-            # its T-halved layout, is not needed here)
+        granule = md.mega_granule(cfg)
+        if chunk % 32 or t2 % granule or t2 % chunk or t2 > t_cap:
+            # the TPU kernel's shape rules (``mega_decode.py:206-214``), kept
+            # so that T2 and the step count equal the JAX package's
+            # ((t2 // 2) % chunk, a rule of its T-halved int4 layout, is not
+            # needed here)
             raise ValueError(f"chunk {chunk} must be a multiple of 32 and T2 {t2} a "
-                             f"multiple of 256 and of the chunk, at most t_cap {t_cap}")
+                             f"multiple of {granule} and of the chunk, at most t_cap "
+                             f"{t_cap}")
         self.cfg, self.batch = cfg, batch
         self.t_cap, self.t2, self.chunk = t_cap, t2, chunk
         self.mega = md.MegaServer(cfg, lm)

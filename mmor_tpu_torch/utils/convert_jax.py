@@ -128,18 +128,35 @@ def convert_dvis(params: dict) -> dict[str, torch.Tensor]:
 
 
 def mega_cache_from_jax(k_int, k_scale, v_int, v_scale, kv_mask, write_pos: int,
-                        tok_pos) -> dict[str, torch.Tensor]:
-    """The port's int4 decode cache from a JAX int4 megakernel cache's
-    values: ``k_int``/``v_int`` (L, B, H, T, Dh) int4 values as
+                        tok_pos, kv_bits: int = 4) -> dict[str, torch.Tensor]:
+    """The port's decode cache from a JAX megakernel cache, with
+    ``k_scale``/``v_scale`` (L, H, B, T) as that cache stores them,
+    ``kv_mask`` (B, T) and ``tok_pos`` (B,). ``kv_bits`` 4:
+    ``k_int``/``v_int`` are (L, B, H, T, Dh) int4 values as
     ``mmor_tpu.ops.mega_decode.unpack_k_int4`` / ``unpack_v_int4`` return
-    them, ``k_scale``/``v_scale`` (L, H, B, T) as that cache stores them,
-    ``kv_mask`` (B, T), ``tok_pos`` (B,). The port keeps (L, B, H, T, Dh/2)
-    nibble pairs and (L, B, H, T) bf16 scales (``ops/mega_decode.py``)."""
+    them, and the port keeps (L, B, H, T, Dh/2) nibble pairs. ``kv_bits`` 8:
+    they are the cache's own int32 words, keys D-packed (L, B, H, Dh/4, T)
+    (byte b of word r = channel 4r + b) and values T-packed (L, B, H, T/4,
+    Dh) (byte b of word r = position 4r + b), and the port keeps (L, B, H,
+    T, Dh) int8. Scales become (L, B, H, T) bf16 (``ops/mega_decode.py``)."""
     from mmor_tpu_torch.ops.mega_decode import pack_kv_int4
 
     def pack(values):
+        if kv_bits == 8:
+            return torch.from_numpy(np.ascontiguousarray(values))
         return pack_kv_int4(torch.from_numpy((np.asarray(values, np.int16) + 8)
                                              .astype(np.uint8)))
+
+    if kv_bits == 8:
+        # little-endian bytes of each word, then the packed axis moved inward
+        kb = np.ascontiguousarray(k_int, np.int32).view(np.int8)  # (.., Dh/4, T * 4)
+        *lead, d4, t4 = kb.shape
+        k_int = kb.reshape(*lead, d4, t4 // 4, 4).swapaxes(-3, -2).reshape(
+            *lead, t4 // 4, d4 * 4)
+        vb = np.ascontiguousarray(v_int, np.int32).view(np.int8)  # (.., T/4, Dh * 4)
+        *lead, t_4, d_4 = vb.shape
+        v_int = vb.reshape(*lead, t_4, d_4 // 4, 4).swapaxes(-2, -1).reshape(
+            *lead, t_4 * 4, d_4 // 4)
 
     def scales(s):
         return torch.from_numpy(np.asarray(s, np.float32).transpose(0, 2, 1, 3).copy()

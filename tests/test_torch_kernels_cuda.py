@@ -6,7 +6,9 @@ key segment ids, fully masked query rows, f32 activations, the last layer of
 a cache stack, a decode batch row with no valid cache position, the batch
 bucket after EOS compaction, K5's piggyback-prefill rows (empty, mid and
 last chunks of the working cache, a chunk with one real column, the decode
-rows bit-identical with and without them). Every test needs a CUDA device
+rows bit-identical with and without them), each K5 case at the four
+(weight, KV cache) width pairs, and a cache whose dtype does not match its
+width. Every test needs a CUDA device
 and skips without one (the kernels have no CPU mode); run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
@@ -173,27 +175,46 @@ def test_int4_matmul_kernel(dev, m, k, n, group, dtype):
         Q.int4_matmul_packed(x, w_p, scale, group=group, int8_mxu=False)
 
 
-def _mega_inputs(dev, batch: int, t_cap: int = 64, n_layers: int = 2):
-    """Random int4 weights (dim 512, 4 heads of 128, ffn 1024, group 256)
-    and an int4 cache whose rows hold different numbers of positions."""
+WIDTHS = [(4, 4), (8, 8), (4, 8), (8, 4)]
+
+
+def _kv_stacks(g, dev, kvbits: int, *lead):
+    """Random K/V stacks (*lead, 128) int8 or (*lead, 64) uint8 nibble pairs,
+    with bf16 scales (*lead)."""
+    if kvbits == 8:
+        stacks = {name: torch.randint(-127, 128, (*lead, 128), generator=g, device=dev,
+                                      dtype=torch.int32).to(torch.int8) for name in ("k", "v")}
+    else:
+        stacks = {name: torch.randint(0, 256, (*lead, 64), generator=g, device=dev,
+                                      dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
+    for name in ("k_s", "v_s"):
+        stacks[name] = (torch.rand(lead, generator=g, device=dev) * 0.05 + 0.01
+                        ).to(torch.bfloat16)
+    return stacks
+
+
+def _mega_inputs(dev, batch: int, t_cap: int = 64, n_layers: int = 2, wbits: int = 4,
+                 kvbits: int = 4):
+    """Random int4 (group 256) or int8 weights (dim 512, 4 heads of 128, ffn
+    1024, K-chunk 256) and an int4 or int8 cache whose rows hold different
+    numbers of positions."""
     g = torch.Generator(device=dev).manual_seed(5)
     d, f, h, grp = 512, 1024, 4, 256
     shapes = ((d, 3 * d), (d, d), (d, 2 * f), (f, d))
     layers = [[] for _ in range(8)]
     for _ in range(n_layers):
         for i, (k, n) in enumerate(shapes):
-            w_q, sc = Q.quantize_weights_int4(
-                torch.randn(k, n, generator=g, device=dev) * 0.02, grp)
-            layers[2 * i].append(Q.pack_int4_rows(w_q, grp))
+            w = torch.randn(k, n, generator=g, device=dev) * 0.02
+            if wbits == 4:
+                w_q, sc = Q.quantize_weights_int4(w, grp)
+                layers[2 * i].append(Q.pack_int4_rows(w_q, grp))
+            else:
+                w_q, sc = Q.quantize_weights(w)
+                layers[2 * i].append(Q.pack_int8_rows(w_q))
             layers[2 * i + 1].append(sc)
     weights = M.MegaWeights(layers, 1 + 0.1 * torch.randn(n_layers, 2, d, generator=g,
-                                                          device=dev), grp, f, h)
-    shape = (n_layers, batch, h, t_cap, 64)
-    cache = {name: torch.randint(0, 256, shape, generator=g, device=dev,
-                                 dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
-    for name in ("k_s", "v_s"):
-        cache[name] = (torch.rand(shape[:-1], generator=g, device=dev) * 0.05 + 0.01
-                       ).to(torch.bfloat16)
+                                                          device=dev), grp, f, h, wbits)
+    cache = _kv_stacks(g, dev, kvbits, n_layers, batch, h, t_cap)
     mask = torch.zeros(batch, t_cap, dtype=torch.int32, device=dev)
     for r in range(batch):
         mask[r, r % 8: t_cap - 8 - 4 * (r % 4)] = 1
@@ -213,24 +234,34 @@ def _assert_mega_close(got, ref):
         assert rel_l2(got[i], ref[i]) <= 2e-3
 
 
+def _counter(widths, pf: bool) -> str:
+    """The launch counter of K5's variant at these widths."""
+    name = "pf_launches" if pf else "launches"
+    return name if widths == (4, 4) else "int8_" + name
+
+
+@pytest.mark.parametrize("widths", WIDTHS, ids=lambda w: f"w{w[0]}kv{w[1]}")
 @pytest.mark.parametrize("case", ["two_layers", "fully_masked_row", "bucket_after_compaction"])
-def test_mega_decode_kernel(dev, case):
-    x, weights, cache, cos, sin = _mega_inputs(dev, 16 if case.startswith("bucket") else 8)
+def test_mega_decode_kernel(dev, case, widths):
+    x, weights, cache, cos, sin = _mega_inputs(dev, 16 if case.startswith("bucket") else 8,
+                                               wbits=widths[0], kvbits=widths[1])
     if case == "fully_masked_row":
         cache["kv_mask"][3] = 0  # row 3 attends to its current token alone
     if case == "bucket_after_compaction":
         lanes = torch.tensor([0, 2, 5, 9, 12, 15, 15, 15], device=dev)
         cache = M.compact_cache(cache, lanes)
         x, cos, sin = x[lanes].contiguous(), cos[lanes], sin[lanes]
-    before = M.mega_decode_layers.launches
+    counter = _counter(widths, pf=False)
+    before = getattr(M.mega_decode_layers, counter)
     got = M.mega_decode_layers(x, weights, cache, cos, sin)
     ref = M.mega_decode_layers_plain(x, weights, cache, cos, sin)
     torch.cuda.synchronize()
-    assert M.mega_decode_layers.launches == before + 1
+    assert getattr(M.mega_decode_layers, counter) == before + 1
     assert got[0].shape == x.shape and got[1].shape == (2, x.shape[0], 4, 128)
     _assert_mega_close(got, ref)  # both layers, the last one included
 
 
+@pytest.mark.parametrize("widths", WIDTHS, ids=lambda w: f"w{w[0]}kv{w[1]}")
 @pytest.mark.parametrize("batch,c,wp,amask", [
     (8, 32, 0, "first_3_masked"),       # an empty working cache
     (8, 128, 128, "first_3_masked"),    # a mid-cache chunk
@@ -238,17 +269,13 @@ def test_mega_decode_kernel(dev, case):
     (16, 128, 0, "one_column"),         # rows before it see no key at all
     (8, 32, 128, "one_column"),
 ])
-def test_mega_decode_kernel_pf_rows(dev, batch, c, wp, amask):
+def test_mega_decode_kernel_pf_rows(dev, batch, c, wp, amask, widths):
     """K5-pf against its plain version, the decode rows bit-identical to the
     same call without the chunk."""
-    x, weights, cache, cos, sin = _mega_inputs(dev, batch)
+    x, weights, cache, cos, sin = _mega_inputs(dev, batch, wbits=widths[0], kvbits=widths[1])
     g = torch.Generator(device=dev).manual_seed(6)
-    t2, shape = 256, (2, 4, 256, 64)
-    work = {name: torch.randint(0, 256, shape, generator=g, device=dev,
-                                dtype=torch.int32).to(torch.uint8) for name in ("k", "v")}
-    for name in ("k_s", "v_s"):
-        work[name] = (torch.rand(shape[:-1], generator=g, device=dev) * 0.05 + 0.01
-                      ).to(torch.bfloat16)
+    t2 = 256
+    work = _kv_stacks(g, dev, widths[1], 2, 4, t2)
     am = torch.ones(c, dtype=torch.int32, device=dev)
     if amask == "one_column":
         am.zero_()
@@ -259,11 +286,12 @@ def test_mega_decode_kernel_pf_rows(dev, batch, c, wp, amask):
     pf = dict(x=randn(g, c, 512, dev=dev), cos=pcos, sin=psin, amask=am,
               mask=(torch.arange(t2, device=dev) < wp).to(torch.int32), **work)
     base = M.mega_decode_layers(x, weights, cache, cos, sin)
-    before = M.mega_decode_layers.pf_launches
+    counter = _counter(widths, pf=True)
+    before = getattr(M.mega_decode_layers, counter)
     got = M.mega_decode_layers(x, weights, cache, cos, sin, pf=pf)
     ref = M.mega_decode_layers_plain(x, weights, cache, cos, sin, pf=pf)
     torch.cuda.synchronize()
-    assert M.mega_decode_layers.pf_launches == before + 1
+    assert getattr(M.mega_decode_layers, counter) == before + 1
     for name, a, b in zip(("x", "knew", "knew_s", "vnew", "vnew_s"), got[:5], base):
         assert torch.equal(a, b), name
     _assert_mega_close(got, ref)
@@ -283,6 +311,27 @@ def test_mega_decode_kernel_pf_refuses_bad_operands(dev):
               v=torch.zeros(2, 4, 256, 64, dtype=torch.uint8, device=dev),
               v_s=torch.ones(2, 4, 256, dtype=torch.float32, device=dev))
     with pytest.raises(ValueError, match="v_s"):
+        M.mega_decode_layers(x, weights, cache, cos, sin, pf=pf)
+
+
+def test_mega_decode_kernel_refuses_cache_of_another_width(dev):
+    """A cache's dtype must match the width its last axis gives: int8 for
+    Dh values, uint8 nibble pairs for Dh/2; the working cache's must match
+    the decode cache's."""
+    x, weights, cache, cos, sin = _mega_inputs(dev, 8, wbits=8, kvbits=8)
+    as_uint8 = dict(cache, k=cache["k"].view(torch.uint8), v=cache["v"].view(torch.uint8))
+    with pytest.raises(ValueError, match="int8 cache"):
+        M.mega_decode_layers(x, weights, as_uint8, cos, sin)
+    _, _, cache4, _, _ = _mega_inputs(dev, 8, kvbits=4)
+    as_int8 = dict(cache4, k=cache4["k"].view(torch.int8), v=cache4["v"].view(torch.int8))
+    with pytest.raises(ValueError, match="int4 cache"):
+        M.mega_decode_layers(x, weights, as_int8, cos, sin)
+    pf = dict(x=randn(torch.Generator(device=dev), 32, 512, dev=dev),
+              cos=cos[:1].expand(32, -1).contiguous(), sin=sin[:1].expand(32, -1).contiguous(),
+              amask=torch.ones(32, dtype=torch.int32, device=dev),
+              mask=torch.zeros(128, dtype=torch.int32, device=dev),
+              **_kv_stacks(torch.Generator(device=dev), dev, 4, 2, 4, 128))
+    with pytest.raises(ValueError, match="pf"):
         M.mega_decode_layers(x, weights, cache, cos, sin, pf=pf)
 
 

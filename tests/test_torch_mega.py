@@ -41,7 +41,7 @@ from mmor_tpu.ops import quantized_matmul as jqmm
 from mmor_tpu.sg.converters import parse_sg_string as j_parse
 from mmor_tpu.sg.prompts import IMAGE_TOKEN_INDEX
 from mmor_tpu_torch import config as tcfg
-from mmor_tpu_torch.cli.common import quantize_int4
+from mmor_tpu_torch.cli.common import quantize_mega
 from mmor_tpu_torch.data.or_dataset import ORDataset
 from mmor_tpu_torch.data.synthetic import build_synthetic_dataset
 from mmor_tpu_torch.eval.sg_eval import SceneGraphEvaluator
@@ -385,12 +385,13 @@ def _mm2sg_pair(llama, seed: int, std: float):
 def _quantize_pair(cfg, params, tmodel, lcfg):
     """Both packages' MM2SG with the language model quantized to ``lcfg``
     (JAX: ``mmor_tpu/cli/common.py``'s int4 branch; the port:
-    ``quantize_int4``, which must derive the same config and weights)."""
+    ``quantize_mega`` at int4, which must derive the same config and
+    weights)."""
     qcfg = dataclasses.replace(cfg, llama=lcfg)
     qparams = {"params": dict(params["params"])}
     qparams["params"]["language_model"] = int4_tree(
         params["params"]["language_model"], lcfg.weight_group, lcfg.ffn_pad)
-    tmodel = quantize_int4(tmodel)
+    tmodel = quantize_mega(tmodel, 4, 4)
     assert tmodel.cfg == torch_cfg(qcfg)
     want = convert_llama(qparams["params"]["language_model"])
     got = tmodel.language_model.state_dict()

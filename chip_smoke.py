@@ -8,14 +8,20 @@ Run from the root of a checkout, with no arguments:
 Phases (each prints its lines; any failure exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles K1-K6, K5's piggyback-prefill rows (K5-pf) and its int8
-   widths (K5-int8) from ``mmor_tpu_torch/csrc`` (one nvcc a source), and
-   prints the registers, stack frame and spills of each kernel compiled
-   from ``mega_decode.cu``;
+1. build: compiles K1-K8, K5's piggyback-prefill rows (K5-pf) and its int8
+   widths (K5-int8), and the microbenchmark kernels K10a and K10b from
+   ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
+   stack frame and spills of each kernel compiled from ``mega_decode.cu``;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
-   serving paths' shapes, with the bound stated on each line, and its time
-   beside its roofline bound, the plain version's time and, where one
-   PyTorch call computes the same function, that call's time; K5 at 7B
+   serving paths' shapes (K7, K8, K10a and K10b at the microbenchmarks',
+   and K2 also at ``bench_decode_parts``' batch 14 over the 7B shapes; K2
+   and K8 bit for bit; K7 with a control that must miss its bound, the
+   kernel on bf16 copies of f32 scales),
+   with the bound stated on each line, and its device time (each case's
+   calls queued behind a spin kernel) beside its roofline bound, the plain
+   version's time and, where one PyTorch call computes the
+   same function, that call's time (``torch._int_mm`` on the int8 operands
+   with the rescales for K2 and K8, its rows padded to 32 where fewer); K5 at 7B
    widths and depth 2 at all four (weight, KV cache) width pairs; K5-pf and
    K5-int8-pf, at (4, 4) and (8, 8) (8 decode rows, a 128-row chunk, a
    768-column working cache), each layer alone, with the decode rows
@@ -63,7 +69,16 @@ Phases (each prints its lines; any failure exits non-zero):
     128-granular): what phase 5 reports, for K5-int8;
 11. overlapped int8 path: phase 10's model (one model for both) through
     ``generate_overlapped`` as phase 9 runs it: what phase 9 reports, for
-    K5-int8 and its pf rows.
+    K5-int8 and its pf rows;
+12. perf tools: the port's ``tools/perf`` microbenchmarks at their default
+    sizes (the JAX scripts'), each ``main`` as a user runs it:
+    ``bench_stream`` (bf16, K8 W8A8, K10a W8A16 and K10b w8p weight streams
+    at M 16 over 8 layers of 4096 x 11264), ``bench_w8a16``,
+    ``bench_packed`` (K10b at int8 and int4) and both parts of
+    ``bench_decode_parts`` (a 7B decode step's weights through K2 at batch
+    14, and K7 over 32 distinct 1024-position caches): their lines, their
+    spot checks (each within its bound) and the launch counts of K2, K7,
+    K8, K10a and K10b.
 
 Each phase prints its wall time. The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -113,10 +128,22 @@ KERNELS = {
     "K6 ms_deform_attn": (
         "cuda", "mmor_tpu_torch/csrc/ms_deform_attn.cu",
         "mmor_tpu/ops/deformable_sampler.py:268"),
+    "K7 decode_attention_packed": (
+        "cuda", "mmor_tpu_torch/csrc/decode_attention.cu",
+        "mmor_tpu/ops/attention.py:396"),
+    "K8 int8_matmul": (
+        "cuda", "mmor_tpu_torch/csrc/int8_matmul.cu",
+        "mmor_tpu/ops/quantized_matmul.py:59"),
+    "K10a w8a16_matmul": (
+        "cuda", "mmor_tpu_torch/csrc/stream_matmul.cu",
+        "tools/perf/bench_w8a16.py:57"),
+    "K10b wp_matmul": (
+        "cuda", "mmor_tpu_torch/csrc/stream_matmul.cu",
+        "tools/perf/bench_packed.py:91"),
 }
-# the kernels each serving path runs (phase 3: int8, phase 5: int4,
-# phase 7: panoptic, phase 9: overlapped int4, phase 10: int8 megakernel,
-# phase 11: overlapped int8 megakernel)
+# the kernels each path runs (phase 3: int8, phase 5: int4, phase 7:
+# panoptic, phase 9: overlapped int4, phase 10: int8 megakernel, phase 11:
+# overlapped int8 megakernel, phase 12: the perf tools)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
@@ -130,6 +157,8 @@ PATH_KERNELS = {
     "overlap8": ("K1 flash_attention", "K2 int8_matmul_packed",
                  "K5-int8 mega_decode_layers(int8)",
                  "K5-int8-pf mega_decode_layers(int8,pf)"),
+    "perf": ("K2 int8_matmul_packed", "K7 decode_attention_packed", "K8 int8_matmul",
+             "K10a w8a16_matmul", "K10b wp_matmul"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -167,6 +196,14 @@ K5_X_BOUND, K5_KV_AGREE = 2e-3, 0.999
 # H100: rel_l2 2.1e-5 to 2.5e-5 in bf16, 1.0e-7 to 1.4e-7 in f32; the bounds
 # leave 40x and 7x of room.
 K6_BOUND = {"bf16": 1e-3, "f32": 1e-6}
+# K7 against its plain version: both keep the scales in their own dtype and
+# the logits, softmax and weighted sum in f32, in another order, so they
+# differ by the sums' order and the bf16 output's rounding. Measured on an
+# H100 at B 14, H 32, T 1024: rel_l2 6.8e-5 (bf16 scales) and 8.2e-5 (f32).
+# Casting f32 scales to bf16 moves each by up to 2^-9, about 1e-3 of the
+# output, so the bound sits between the two, and a control run of the kernel
+# on bf16 copies of the f32 scales must land above it.
+K7_BOUND = 3e-4
 # panoptic path (phase 7): frames at the JAX bench's 736x1280 in 3-frame
 # windows, three windows a video
 PANOPTIC_SIZE, PANOPTIC_FRAMES = (736, 1280), 9
@@ -206,18 +243,21 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, iters: int, warmup: int = 1) -> float:
+def time_ms(fn, iters: int) -> tuple[float, bool]:
+    """Device ms of one call of ``fn``: ``iters`` back-to-back calls queued
+    behind a spin kernel after a warm window (``tools.perf.timing.scan_ms``),
+    so a kernel shorter than its wrapper's Python is timed on the card; and
+    whether the host had queued all of them before the card began."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    from mmor_tpu_torch.tools.perf.timing import scan_ms
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    ms, ahead = scan_ms(calls, 1, torch.device("cuda"))
+    return ms / iters, bool(ahead)
 
 
 class Failed(Exception):
@@ -238,11 +278,18 @@ def kernel_modules():
     return A, Q, M, D
 
 
+def perf_modules():
+    from mmor_tpu_torch.tools.perf import bench_packed, bench_w8a16
+
+    return bench_w8a16, bench_packed
+
+
 def _counters() -> dict:
     """Each kernel's launch count: (wrapper, attribute). K5's wrapper counts
     its launches with pf rows (K5-pf) apart from those without, and those at
     an int8 width (K5-int8) apart from the int4 ones."""
     A, Q, M, D = kernel_modules()
+    W, P = perf_modules()
     return {"K1 flash_attention": (A.flash_attention, "launches"),
             "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
             "K3 int4_matmul_packed": (Q.int4_matmul_packed, "launches"),
@@ -253,7 +300,11 @@ def _counters() -> dict:
             "K5-int8 mega_decode_layers(int8)": (M.mega_decode_layers, "int8_launches"),
             "K5-int8-pf mega_decode_layers(int8,pf)": (M.mega_decode_layers,
                                                        "int8_pf_launches"),
-            "K6 ms_deform_attn": (D.ms_deform_attn_sampler, "launches")}
+            "K6 ms_deform_attn": (D.ms_deform_attn_sampler, "launches"),
+            "K7 decode_attention_packed": (A.decode_attention_packed, "launches"),
+            "K8 int8_matmul": (Q.int8_matmul, "launches"),
+            "K10a w8a16_matmul": (W.w8a16_matmul, "launches"),
+            "K10b wp_matmul": (P.wp_matmul, "launches")}
 
 
 def launch_counts() -> dict:
@@ -345,13 +396,15 @@ class Case:
     """One kernel-vs-plain case: ``fn`` and ``plain`` compute the same
     function on the same inputs; ``nbytes``/``ops`` give the roofline bound
     of that work; ``library`` is one PyTorch call computing it, if any;
-    ``extra`` checks outputs beyond the first tensor (K5's tuple)."""
+    ``extra`` checks outputs beyond the first tensor (K5's tuple); with
+    ``exact`` the kernel must equal its plain version bit for bit."""
 
     def __init__(self, kernel, name, fn, plain, bound, iters, on_path, nbytes, ops,
-                 library=None, extra=None):
+                 library=None, extra=None, exact=False):
         self.kernel, self.name, self.fn, self.plain = kernel, name, fn, plain
         self.bound, self.iters, self.on_path = bound, iters, on_path
         self.nbytes, self.ops, self.library, self.extra = nbytes, ops, library, extra
+        self.exact = exact
 
 
 def _attention_mask(b, sq, sk, causal, seg, dev):
@@ -364,6 +417,27 @@ def _attention_mask(b, sq, sk, causal, seg, dev):
     if seg is not None:
         mask &= seg[:, None, :, None] == seg[:, None, None, :]
     return mask
+
+
+def int_mm_library(xq, rs, w8, scale, out_dtype):
+    """One ``torch._int_mm`` on the int8 operands with the two rescales (the
+    yardstick of the W8A8 kernels K2 and K8, timed only). ``_int_mm`` takes
+    more than 16 rows, so fewer are zero-padded to 32; the weight is laid
+    out column-major, as cuBLASLt's int8 product takes it. Returns (the call,
+    the rows it multiplies)."""
+    import torch
+
+    m = xq.shape[0]
+    rows = m if m > 16 else 32
+    xp = torch.zeros(rows, xq.shape[1], dtype=torch.int8, device=xq.device)
+    xp[:m] = xq
+    w8 = w8.t().contiguous().t()
+
+    def call():
+        acc = torch._int_mm(xp, w8)[:m]
+        return (acc.float() * scale[None, :] * rs[:, None]).to(out_dtype)
+
+    return call, rows
 
 
 def k5_names(widths) -> tuple[str, str]:
@@ -603,12 +677,14 @@ def kernel_cases(dev):
             w_q, scale = Q.quantize_weights(
                 torch.randn(kdim, n, generator=g, device=dev) * 0.02)
             w_p = Q.pack_int8_rows(w_q)
+            library, rows = int_mm_library(*Q.quantize_rows(x), w_q, scale, bf)
             cases.append(Case(
-                "K2 int8_matmul_packed", f"w8a8 M={m} K={kdim} N={n}",
+                "K2 int8_matmul_packed", f"w8a8 M={m} K={kdim} N={n} library_rows={rows}",
                 lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed(x, w_p, s),
                 lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s),
                 1e-3, 10 if m == 8 else 3, True,
-                m * kdim * 2 + kdim * n + n * 4 + m * n * 2, {"int8": 2.0 * m * kdim * n}))
+                m * kdim * 2 + kdim * n + n * 4 + m * n * 2, {"int8": 2.0 * m * kdim * n},
+                library=library, exact=True))
     # W8A16 (quant_int8_mxu=False): not on a serving path
     x = randn(8, 4096)
     w_q, scale = Q.quantize_weights(torch.randn(4096, 4096, generator=g, device=dev) * 0.02)
@@ -666,6 +742,103 @@ def kernel_cases(dev):
     cases.extend(_k5_cases(dev, g8, 8, 8))
     for wbits, kvbits in ((4, 8), (8, 4)):
         cases.extend(_k5_cases(dev, g8, wbits, kvbits, with_pf=False, on_path=False))
+    cases.extend(_perf_cases(dev))
+    return cases
+
+
+def _perf_cases(dev):
+    """K2, K7, K8, K10a and K10b at the perf tools' shapes (phase 12's path):
+    one layer of each weight stream at M 16 and at both benches' widths
+    (N 11264: ``bench_stream``, ``bench_packed``; N 11008: ``bench_w8a16``),
+    K8 bit for bit, K10b at int8 and int4 (N 11264, as both benches run
+    it); K7 on one layer of ``bench_decode_parts``' cache (B 14, H 32,
+    T 1024, D 128) with left-padded rows, at f32 scales (the tool's, with
+    the bf16-cast control) and bf16 ones; and K2 bit for bit at that
+    tool's batch over the 7B projections' and the lm_head's shapes. Inputs
+    come from a generator of their own, so the cases before keep theirs."""
+    import torch
+
+    from mmor_tpu_torch.config import LlamaConfig
+    from mmor_tpu_torch.tools.perf import bench_decode_parts
+
+    A, Q, _, _ = kernel_modules()
+    W, P = perf_modules()
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    cases = []
+    m, kdim = 16, 4096
+    x = torch.randn(m, kdim, generator=g, device=dev).to(bf)
+    for n in (11264, 11008):
+        w_q, scale = Q.quantize_weights(torch.randn(kdim, n, generator=g, device=dev) * 0.02)
+        nbytes = m * kdim * 2 + kdim * n + n * 4 + m * n * 2
+        library, rows = int_mm_library(*Q.quantize_rows_div(x), w_q, scale, bf)
+        cases.append(Case(
+            "K8 int8_matmul", f"w8a8 M={m} K={kdim} N={n} library_rows={rows}",
+            lambda w_q=w_q, s=scale: Q.int8_matmul(x, w_q, s),
+            lambda w_q=w_q, s=scale: Q.int8_matmul_plain(x, w_q, s), 1e-3, 20, True,
+            nbytes, {"int8": 2.0 * m * kdim * n}, library=library, exact=True))
+        cases.append(Case(
+            "K10a w8a16_matmul", f"w8a16 M={m} K={kdim} N={n}",
+            lambda w_q=w_q, s=scale: W.w8a16_matmul(x, w_q, s),
+            lambda w_q=w_q, s=scale: W.w8a16_matmul_plain(x, w_q, s), 1e-3, 20, True,
+            nbytes, {"bf16": 2.0 * m * kdim * n}))
+        if n != 11264:
+            continue
+        w4, s4 = P.quantize_int4_channels(
+            torch.randn(1, kdim, n, generator=g, device=dev) * 0.02)
+        for name, parts, bits, w_p, sc in (
+                ("w8p", 4, 8, P.pack4_int8(w_q), scale),
+                ("w4p", 8, 4, P.pack8_int4(w4[0]), s4[0])):
+            kw = dict(parts=parts, bits=bits)
+            cases.append(Case(
+                "K10b wp_matmul", f"{name} M={m} K={kdim} N={n}",
+                lambda w_p=w_p, sc=sc, kw=kw: P.wp_matmul(x, w_p, sc, **kw),
+                lambda w_p=w_p, sc=sc, kw=kw: P.wp_matmul_plain(x, w_p, sc, **kw),
+                1e-3, 20, True, m * kdim * 2 + kdim * n * bits // 8 + n * 4 + m * n * 2,
+                {"bf16": 2.0 * m * kdim * n}))
+
+    B, H, T, D = 14, 32, 1024, 128
+    k8, v8 = (torch.randint(-127, 128, (B, H, T, D), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    mask = torch.zeros(B, T, dtype=torch.int32, device=dev)
+    for r in range(B):
+        mask[r, 32 * r:] = 1  # row r left-padded by 32r positions
+    q = torch.randn(B, H, 1, D, generator=g, device=dev).to(bf)
+    valid = int(mask.sum())
+
+    def bf16_cast_control(out, ref, ks, vs):
+        """The kernel on bf16 copies of the f32 scales must miss K7_BOUND."""
+        err = rel_l2(A.decode_attention_packed(q, k8, v8, ks.to(bf), vs.to(bf), mask), ref)
+        check(err > K7_BOUND, f"K7 bf16-cast control at rel_l2 {err:.3e} <= {K7_BOUND:.0e}")
+        return {"bf16_cast_control_rel_l2": f"{err:.3e}"}
+
+    for sdt, on_path in ((torch.float32, True), (bf, False)):
+        ks, vs = ((torch.rand(B, H, T, generator=g, device=dev) * 0.02 + 0.005).to(sdt)
+                  for _ in range(2))
+        args = (q, k8, v8, ks, vs, mask)
+        control = (lambda out, ref, ks=ks, vs=vs: bf16_cast_control(out, ref, ks, vs)
+                   ) if sdt == torch.float32 else None
+        cases.append(Case(
+            "K7 decode_attention_packed",
+            f"B={B} H={H} T={T} D={D} leftpad {str(sdt).split('.')[-1]} scales",
+            lambda a=args: A.decode_attention_packed(*a),
+            lambda a=args: A.decode_attention_packed_plain(*a), K7_BOUND, 20, on_path,
+            H * valid * 2 * (D + ks.element_size()) + B * T * 4 + 2 * B * H * D * 2,
+            {"cuda_core": 4.0 * H * valid * D}, extra=control))
+
+    cfg, mb = LlamaConfig(), bench_decode_parts.B
+    for kdim, n in sorted({*bench_decode_parts.projection_shapes(cfg),
+                           (cfg.dim, cfg.vocab_size)}):
+        xb = torch.randn(mb, kdim, generator=g, device=dev).to(bf)
+        w_q, scale = Q.quantize_weights(torch.randn(kdim, n, generator=g, device=dev) * 0.02)
+        w_p = Q.pack_int8_rows(w_q)
+        library, rows = int_mm_library(*Q.quantize_rows(xb), w_q, scale, bf)
+        cases.append(Case(
+            "K2 int8_matmul_packed", f"w8a8 M={mb} K={kdim} N={n} library_rows={rows}",
+            lambda xb=xb, w_p=w_p, s=scale: Q.int8_matmul_packed(xb, w_p, s),
+            lambda xb=xb, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(xb, w_p, s),
+            1e-3, 10, True, mb * kdim * 2 + kdim * n + n * 4 + mb * n * 2,
+            {"int8": 2.0 * mb * kdim * n}, library=library, exact=True))
     return cases
 
 
@@ -780,17 +953,18 @@ def phase_kernels(dev, summary: dict) -> None:
         max_abs = float((out.float() - ref.float()).abs().max())
         exact = bool(torch.equal(out, ref))
         del out, ref
-        ms = time_ms(case.fn, case.iters)
-        plain_ms = time_ms(case.plain, max(1, case.iters // 3))
-        lib_ms = time_ms(case.library, case.iters) if case.library else None
+        ms, ahead = time_ms(case.fn, case.iters)
+        plain_ms = time_ms(case.plain, max(1, case.iters // 3))[0]
+        lib_ms = time_ms(case.library, case.iters)[0] if case.library else None
         bound_ms, bound_by = roofline_ms(case.nbytes, case.ops)
         say("2 kernel-vs-plain", kernel=case.kernel.split()[0],
             case=case.name.replace(" ", "_"), rel_l2=f"{err:.3e}", bound=f"{case.bound:.0e}",
             max_abs=f"{max_abs:.3e}", bit_exact=exact, ms=f"{ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, plain_ms=f"{plain_ms:.4f}",
             library_ms="none" if lib_ms is None else f"{lib_ms:.4f}",
-            main_path=case.on_path, **extra)
+            host_ahead=ahead, main_path=case.on_path, **extra)
         check(err <= case.bound, f"{what}: rel_l2 {err:.3e} > {case.bound:.0e}")
+        check(exact or not case.exact, f"{what}: not bit-exact to its plain version")
         entry = summary.setdefault(case.kernel, dict(
             max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             bound_by={"bytes": 0.0, "operations": 0.0},
@@ -1613,6 +1787,47 @@ def phase_overlap(dev, predictor=None, widths=(4, 4), phase: str = "9 overlap",
     return counts
 
 
+# --------------------------------------------------------------- phase 12
+def phase_perf_tools(dev) -> dict:
+    """The port's ``tools/perf`` microbenchmarks at their default sizes, each
+    ``main`` as ``python -m`` runs it; every line must be timed and every spot
+    check within its bound (a bench raises otherwise). Returns the launch
+    counts of the kernels they ran."""
+    import functools
+
+    import torch
+
+    from mmor_tpu_torch.tools.perf import (bench_decode_parts, bench_packed, bench_stream,
+                                           bench_w8a16)
+
+    reset_launch_counts()
+    for name, main in (("bench_stream", bench_stream.main),
+                       ("bench_w8a16", bench_w8a16.main),
+                       ("bench_packed", bench_packed.main),
+                       ("bench_decode_parts:weights",
+                        functools.partial(bench_decode_parts.main, part="weights")),
+                       ("bench_decode_parts:attn",
+                        functools.partial(bench_decode_parts.main, part="attn"))):
+        t = time.perf_counter()
+        try:
+            result = main()
+        except RuntimeError as e:  # a spot check over its bound, or a kernel fault
+            raise Failed(f"{name}: {e}") from e
+        sync(dev)
+        say("12 perf-tools", bench=name, seconds=f"{time.perf_counter() - t:.1f}",
+            **{f"{line.split()[0]}_ms": f"{ms:.4f}" for line, ms in result["ms"].items()
+               if ms is not None},
+            **{"spot_" + "_".join(c.split()[:2]): f"{e:.3e}" for c, e in result["spot"].items()})
+        check(None not in result["ms"].values(), f"{name}: a line was not timed")
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["perf"]}
+    say("12 perf-tools", step="launches", **{k.split()[0]: v for k, v in counts.items()})
+    for name, n in counts.items():
+        check(n > 0, f"{name} was not launched by the perf tools")
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def _build_phase(build) -> None:
     path, secs = build.build()
@@ -1659,7 +1874,7 @@ def nvcc_report(log: str) -> list[dict]:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="phases 3, 5, 7, 9, 10 and 11 also write per-kernel device time "
@@ -1726,6 +1941,7 @@ def main(argv=None) -> int:
                                               "mega8", profile_dir=prof)),
         11: ("overlap8", lambda: phase_overlap(dev, int8_predictor(), (8, 8), "11 overlap8",
                                                "overlap8", profile_dir=prof)),
+        12: ("perf", lambda: phase_perf_tools(dev)),
     }
     t_start = time.perf_counter()
     try:

@@ -1,6 +1,7 @@
-// Activation quantization shared by K2 (int8_matmul.cu) and K3
+// Activation quantization shared by K2 and K8 (int8_matmul.cu) and K3
 // (int4_matmul.cu): per-row symmetric int8 rows, the numerics of
-// mmor_tpu/ops/quantized_matmul.py:214-217 and :395-399.
+// mmor_tpu/ops/quantized_matmul.py:214-217 and :395-399 (K2, K3) or of
+// :81-84 (K8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,13 +19,17 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // ------------------------------------------------------ activation rows
-// Per-row symmetric int8 activations, the same arithmetic as the plain
-// quantize_rows: row amax in f32, scale = amax / 127 (1 for a zero row), its
-// inverse rounded to x's type, x * inv in x's type, rounded half to even and
-// clipped to +-127. One block per row.
+// Per-row symmetric int8 activations. Both rules take the row amax in f32
+// and scale = amax / 127 (1 for a zero row), round half to even and clip to
+// +-127; they differ in how a value meets the scale:
+//  - kInverse (K2, K3; the plain quantize_rows): the scale's inverse rounded
+//    to x's type, x * inv in x's type;
+//  - kDivide (K8; the plain quantize_rows_div): x / scale in f32.
+// One block per row.
 constexpr int kQuantThreads = 256;
+enum class QuantRule { kInverse, kDivide };
 
-template <typename T>
+template <typename T, QuantRule kRule = QuantRule::kInverse>
 __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
                      float* __restrict__ row_scale, int k) {
@@ -45,7 +50,9 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
   if (threadIdx.x == 0) row_scale[blockIdx.x] = scale;
   int8_t* qr = xq + (size_t)blockIdx.x * k;
   for (int i = threadIdx.x; i < k; i += kQuantThreads) {
-    const float v = rintf(to_float(from_float<T>(to_float(xr[i]) * inv)));
+    const float v = kRule == QuantRule::kDivide
+                        ? rintf(to_float(xr[i]) / scale)
+                        : rintf(to_float(from_float<T>(to_float(xr[i]) * inv)));
     qr[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
   }
 }

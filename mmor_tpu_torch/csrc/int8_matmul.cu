@@ -1,7 +1,10 @@
-// K2: packed int8 weight matmul, x @ (unpack(w_p) * scale).
+// K2: packed int8 weight matmul, x @ (unpack(w_p) * scale), and K8: the
+// same W8A8 product on an unpacked row-major int8 weight.
 //
 // Replaces mmor_tpu/ops/quantized_matmul.py::int8_matmul_packed
-// (_packed_kernel, the pl.pallas_call at :250).
+// (_packed_kernel, the pl.pallas_call at :250) and
+// mmor_tpu/ops/quantized_matmul.py::int8_matmul (_kernel, the pl.pallas_call
+// at :102).
 //
 // What bounds it on the H100: at decode (M = batch = 8) every weight byte
 // is read once per token for 16 multiply-adds, so the product is bound by
@@ -23,9 +26,18 @@
 //      column weight spreads over 128 blocks; operands load straight from
 //      device memory (each weight word is used once), four k-steps of loads
 //      in flight per warp before their products, and the warps' partial
-//      sums meet in shared memory.
+//      sums meet in shared memory. The mma takes any 8 columns in its n
+//      slots, so lane group g owns the four neighbouring columns 4g..4g+3
+//      of the block, one in each 8-column mma tile, and fetches their words
+//      of a word row at once (weight_words.cuh's w_words4).
 //    * tiled kernel (prefill): 64 x 64 block tiles, a 2 x 2 warp grid of
 //      32 x 32 warp tiles, K staged through shared memory 64 at a time.
+//  - K8 is the same two W8A8 kernels with two template parameters changed:
+//    the weight layout (WLayout::kBytes, the unpacked (K, N) int8 weight:
+//    a thread reads four neighbouring columns of each of four rows as one
+//    4-byte load a row and transposes the 4 x 4 bytes into their words) and
+//    the activation rule (QuantRule::kDivide: x / row_scale in f32, K8's
+//    quantized_matmul.py:81-84). Its epilogue is K2's, in JAX's order.
 //  - W8A16 (int8_mxu off): a plain FMA kernel over bf16/f32 activations and
 //    int8 weights converted in registers, f32 accumulation, times col_scale.
 
@@ -34,6 +46,7 @@
 #include <stdint.h>
 
 #include "act_quant.cuh"
+#include "weight_words.cuh"
 
 namespace {
 
@@ -51,9 +64,9 @@ constexpr int kSkinnyWarps = 8;
 constexpr int kSkinnyN = 32;
 constexpr int kSkinnyUnroll = 4;  // k-steps a warp loads before its products
 
-template <typename OutT>
+template <typename OutT, WLayout L>
 __global__ void __launch_bounds__(kSkinnyWarps * 32)
-s8_skinny_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w,
+s8_skinny_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
                  const float* __restrict__ scale, const float* __restrict__ rs,
                  OutT* __restrict__ out, int m, int kw, int n) {
   __shared__ int red[kSkinnyWarps][16][kSkinnyN];
@@ -75,11 +88,22 @@ s8_skinny_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w
       a[u][1] = live && g + 8 < m ? xq[(size_t)(g + 8) * kw + k0 + t4] : 0u;
       a[u][2] = live && g < m ? xq[(size_t)g * kw + k0 + t4 + 4] : 0u;
       a[u][3] = live && g + 8 < m ? xq[(size_t)(g + 8) * kw + k0 + t4 + 4] : 0u;
+      // lane group g owns the four neighbouring columns n0 + 4g .. 4g + 3,
+      // one in each 8-column mma tile
+      const int col = n0 + 4 * g;
 #pragma unroll
-      for (int nt = 0; nt < kSkinnyN / 8; ++nt) {
-        const int col = n0 + nt * 8 + g;
-        b[u][nt][0] = live && col < n ? w[(size_t)(k0 + t4) * n + col] : 0u;
-        b[u][nt][1] = live && col < n ? w[(size_t)(k0 + t4 + 4) * n + col] : 0u;
+      for (int h = 0; h < 2; ++h) {
+        const int r = k0 + t4 + 4 * h;
+        uint4 q = make_uint4(0u, 0u, 0u, 0u);
+        if (live && (n % 4) == 0 && col + 3 < n) {
+          q = w_words4<L>(w, r, col, n);
+        } else if (live) {
+          q.x = col < n ? w_word<L>(w, r, col, n) : 0u;
+          q.y = col + 1 < n ? w_word<L>(w, r, col + 1, n) : 0u;
+          q.z = col + 2 < n ? w_word<L>(w, r, col + 2, n) : 0u;
+          q.w = col + 3 < n ? w_word<L>(w, r, col + 3, n) : 0u;
+        }
+        b[u][0][h] = q.x, b[u][1][h] = q.y, b[u][2][h] = q.z, b[u][3][h] = q.w;
       }
     }
 #pragma unroll
@@ -90,8 +114,10 @@ s8_skinny_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w
 #pragma unroll
   for (int nt = 0; nt < kSkinnyN / 8; ++nt) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      red[warp][g + (e >> 1) * 8][nt * 8 + t4 * 2 + (e & 1)] = acc[nt][e];
+    for (int e = 0; e < 4; ++e) {
+      const int c = t4 * 2 + (e & 1);  // the mma column, block column 4c + nt
+      red[warp][g + (e >> 1) * 8][4 * c + nt] = acc[nt][e];
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 16 * kSkinnyN; i += kSkinnyWarps * 32) {
@@ -108,9 +134,9 @@ constexpr int kTileM = 64, kTileN = 64, kTileKW = 16;  // KW = K / 4 words
 constexpr int kXStride = kTileKW + 4;   // conflict-free A fragment reads
 constexpr int kWStride = kTileN + 8;    // conflict-free B fragment reads
 
-template <typename OutT>
+template <typename OutT, WLayout L>
 __global__ void __launch_bounds__(128)
-s8_tiled_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w,
+s8_tiled_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
                 const float* __restrict__ scale, const float* __restrict__ rs,
                 OutT* __restrict__ out, int m, int kw, int n) {
   __shared__ __align__(16) uint32_t xs[kTileM * kXStride];
@@ -134,15 +160,14 @@ s8_tiled_kernel(const uint32_t* __restrict__ xq, const uint32_t* __restrict__ w,
     for (int c = threadIdx.x; c < kTileKW * kTileN / 4; c += 128) {
       const int r = c / (kTileN / 4), cc = (c % (kTileN / 4)) * 4;
       const int col = n0 + cc;
-      const uint32_t* src = w + (size_t)(k0 + r) * n + col;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (vec_w && col + 3 < n) {
-        val = *reinterpret_cast<const uint4*>(src);
+        val = w_words4<L>(w, k0 + r, col, n);
       } else {
-        val.x = col < n ? src[0] : 0u;
-        val.y = col + 1 < n ? src[1] : 0u;
-        val.z = col + 2 < n ? src[2] : 0u;
-        val.w = col + 3 < n ? src[3] : 0u;
+        val.x = col < n ? w_word<L>(w, k0 + r, col, n) : 0u;
+        val.y = col + 1 < n ? w_word<L>(w, k0 + r, col + 1, n) : 0u;
+        val.z = col + 2 < n ? w_word<L>(w, k0 + r, col + 2, n) : 0u;
+        val.w = col + 3 < n ? w_word<L>(w, k0 + r, col + 3, n) : 0u;
       }
       *reinterpret_cast<uint4*>(ws + r * kWStride + cc) = val;
     }
@@ -208,25 +233,25 @@ w8a16_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
   out[(size_t)row * n + col] = from_float<T>(acc * scale[col]);
 }
 
-template <typename T>
+template <typename T, WLayout L = WLayout::kWords,
+          QuantRule R = QuantRule::kInverse>
 cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
                         const float* scale, void* out, int m, int k, int n,
                         cudaStream_t s) {
   float* rs = static_cast<float*>(row_scale);
-  quantize_rows_kernel<T><<<m, kQuantThreads, 0, s>>>(
+  quantize_rows_kernel<T, R><<<m, kQuantThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<int8_t*>(xq), rs, k);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int kw = k / 4;
   const uint32_t* x32 = static_cast<const uint32_t*>(xq);
-  const uint32_t* w32 = static_cast<const uint32_t*>(w);
   T* o = static_cast<T*>(out);
   if (m <= 16) {
-    s8_skinny_kernel<T><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
-        x32, w32, scale, rs, o, m, kw, n);
+    s8_skinny_kernel<T, L><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
+        x32, w, scale, rs, o, m, kw, n);
   } else {
     dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
-    s8_tiled_kernel<T><<<grid, 128, 0, s>>>(x32, w32, scale, rs, o, m, kw, n);
+    s8_tiled_kernel<T, L><<<grid, 128, 0, s>>>(x32, w, scale, rs, o, m, kw, n);
   }
   return cudaGetLastError();
 }
@@ -246,6 +271,23 @@ extern "C" int mmor_int8_matmul_w8a8(const void* x, void* xq, void* row_scale,
   const float* sc = static_cast<const float*>(scale);
   return x_bf16 ? (int)launch_w8a8<__nv_bfloat16>(x, xq, row_scale, w, sc, out, m, k, n, s)
                 : (int)launch_w8a8<float>(x, xq, row_scale, w, sc, out, m, k, n, s);
+}
+
+// K8, W8A8 on an unpacked weight: x (M, K) bf16 (x_bf16 = 1) or f32; xq
+// (M, K) int8 and row_scale (M,) f32 are scratch the activation quantization
+// (x / row_scale in f32) fills; w (K, N) int8 row-major, scale (N,) f32; out
+// (M, N) in x's dtype. K must be a multiple of 64.
+extern "C" int mmor_int8_matmul_bytes(const void* x, void* xq, void* row_scale,
+                                      const void* w, const void* scale, void* out,
+                                      int m, int k, int n, int x_bf16, void* stream) {
+  if (k % 64 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  constexpr WLayout L = WLayout::kBytes;
+  constexpr QuantRule R = QuantRule::kDivide;
+  return x_bf16
+             ? (int)launch_w8a8<__nv_bfloat16, L, R>(x, xq, row_scale, w, sc, out, m, k, n, s)
+             : (int)launch_w8a8<float, L, R>(x, xq, row_scale, w, sc, out, m, k, n, s);
 }
 
 // W8A16: x (M, K) bf16 (x_bf16 = 1) or f32, w and scale as above, out (M, N)

@@ -1,5 +1,5 @@
-"""Attention ops: K1 flash attention, the plain reference, and K4 decode
-attention against an int8 KV cache stack.
+"""Attention ops: K1 flash attention, the plain reference, K4 decode
+attention against an int8 KV cache stack and K7 against one layer's cache.
 
 Counterpart of ``mmor_tpu/ops/attention.py``. Activations are
 (batch, heads, seq, head_dim); segment ids are (batch, seq) int32 and
@@ -240,3 +240,77 @@ def decode_attention_packed_stack(
 
 
 decode_attention_packed_stack.launches = 0
+
+
+def decode_attention_packed_plain(q, k, v, k_scale, v_scale, kv_mask, *,
+                                  sm_scale: float | None = None):
+    """Plain PyTorch K7, the TPU kernel's arithmetic
+    (``mmor_tpu/ops/attention.py:376-393``): q rounded to bf16, logits
+    q . k in f32 times sm_scale times the key scale, masked slots
+    ``DEFAULT_MASK_VALUE``, softmax in f32, the weights times the value
+    scale, out = sum_t w v in f32, cast to q.dtype."""
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhtd->bhqt", q.to(torch.bfloat16).float(), k.float())
+    logits = logits * scale * k_scale[:, :, None, :].float()
+    logits = torch.where(kv_mask[:, None, None, :] != 0, logits, DEFAULT_MASK_VALUE)
+    weights = torch.softmax(logits, dim=-1) * v_scale[:, :, None, :].float()
+    return torch.einsum("bhqt,bhtd->bhqd", weights, v.float()).to(q.dtype)
+
+
+def decode_attention_packed(
+    q: torch.Tensor,  # (B, H, 1, D)
+    k: torch.Tensor,  # (B, H, T, D) int8, one layer's cache
+    v: torch.Tensor,  # (B, H, T, D) int8
+    k_scale: torch.Tensor,  # (B, H, T) f32 or bf16 per-position scales
+    v_scale: torch.Tensor,  # (B, H, T), the same dtype
+    kv_mask: torch.Tensor,  # (B, T) nonzero on valid slots
+    *,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """K7: one query position against one layer's int8 cache. Returns
+    (B, H, 1, D) in q.dtype.
+
+    The cache is the port's (B, H, T, D) int8 layout (``unpack_kv_heads``
+    converts the TPU's words). The scales stay in their dtype, f32 or bf16.
+    CPU: ``decode_attention_packed_plain``. CUDA: K4's kernel on a one-layer
+    cache (``csrc/decode_attention.cu``), q taken in bf16 as on the TPU,
+    bf16 or f32 q."""
+    b, h, _, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return decode_attention_packed_plain(q, k, v, k_scale, v_scale, kv_mask,
+                                             sm_scale=scale)
+    name = "decode_attention_packed"
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: q dtype {q.dtype}")
+    _require_cuda_inputs(name, {"q": q}, q.dtype)
+    _require_cuda_inputs(name, {"k": k, "v": v}, torch.int8)
+    if k_scale.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: scales must be f32 or bf16, got {k_scale.dtype}")
+    _require_cuda_inputs(name, {"k_scale": k_scale, "v_scale": v_scale}, k_scale.dtype)
+    t_cap = k.shape[2]
+    if (k.shape != (b, h, t_cap, d) or v.shape != k.shape
+            or k_scale.shape != (b, h, t_cap) or v_scale.shape != k_scale.shape
+            or q.shape[2] != 1):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if d % 16 or d > 256:
+        raise ValueError(f"{name}: head_dim {d}")
+    mask = _build.aligned(kv_mask.to(torch.int32))
+    if mask.shape != (b, t_cap):
+        raise ValueError(f"{name}: kv_mask must be (B, T)")
+    _require_cuda_inputs(name, {"kv_mask": mask}, torch.int32)
+    qc = _build.aligned(q.to(torch.bfloat16))
+    k, v = _build.aligned(k), _build.aligned(v)
+    k_scale, v_scale = _build.aligned(k_scale), _build.aligned(v_scale)
+    out = torch.empty(b, h, 1, d, dtype=q.dtype, device=q.device)
+    err = _build.library().mmor_decode_attention_layer(
+        _build.ptr(qc), _build.ptr(k), _build.ptr(v), _build.ptr(k_scale),
+        _build.ptr(v_scale), _build.ptr(mask), _build.ptr(out), b, h, t_cap, d,
+        float(scale), int(k_scale.dtype == torch.float32), int(q.dtype == torch.float32),
+        _build.stream())
+    _build.check(err, name)
+    decode_attention_packed.launches += 1
+    return out
+
+
+decode_attention_packed.launches = 0

@@ -1,4 +1,4 @@
-"""Packed-weight matmuls: K2 (int8 weights) and K3 (int4 weights).
+"""Int8- and int4-weight matmuls: K2 and K8 (int8 weights), K3 (int4).
 
 Counterpart of ``mmor_tpu/ops/quantized_matmul.py``. The weight formats are
 the JAX package's, so converted checkpoints load as they are and the CUDA
@@ -6,6 +6,8 @@ kernels read the words as tensor-core operands:
 
 - int8: per-output-channel f32 scales, 4 rows per int32 word along K
   (``pack_int8_rows``); K2, ``csrc/int8_matmul.cu``;
+- int8 unpacked: the same scales on a row-major (K, N) int8 weight; K8
+  (``int8_matmul``), the same file, with its own activation rule;
 - int4: values in [-7, 7] with per-(K-group, channel) f32 scales, 8 biased
   nibbles per int32 word (``pack_int4_rows``); K3, ``csrc/int4_matmul.cu``.
 """
@@ -118,6 +120,72 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
 
 
 int8_matmul_packed.launches = 0
+
+
+# ------------------------------------------------------------------ K8
+def quantize_rows_div(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 activations by K8's rule
+    (``mmor_tpu/ops/quantized_matmul.py:81-84``), not K2's: x in f32, row
+    amax, scale = amax / 127 (1 for a zero row), x / scale in f32, rounded
+    half to even and clipped to +-127.
+    Returns (int8 (M, K), row scale (M,) f32)."""
+    xf = x.float()
+    row_amax = xf.abs().amax(dim=1, keepdim=True)
+    # tensor divisors: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal
+    row_scale = torch.where(row_amax > 0, row_amax / torch.full_like(row_amax, 127.0),
+                            torch.ones_like(row_amax))
+    xq = torch.clamp(torch.round(xf / row_scale), -127, 127).to(torch.int8)
+    return xq, row_scale[:, 0]
+
+
+def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K8, the TPU kernel's W8A8 numerics: ``quantize_rows_div``,
+    the int8 product summed exactly (float64 holds every int32 sum), then
+    acc * scale, times the row scale, in f32, cast to x.dtype
+    (``quantized_matmul.py:54-56``, ``:118``)."""
+    xq, rs = quantize_rows_div(x)
+    acc = (xq.double() @ w_q.double()).float()
+    return (acc * scale[None, :].float() * rs[:, None]).to(x.dtype)
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K8: x (M, K) @ (w_q (K, N) int8 * scale (N,) f32) as W8A8 -> (M, N)
+    in x.dtype.
+
+    CPU: ``int8_matmul_plain``. CUDA: ``csrc/int8_matmul.cu``, K2's two
+    W8A8 kernels with K8's activation rule and a byte-layout weight loader
+    (bf16 or f32 x; K a multiple of 64). Counts its launches in
+    ``int8_matmul.launches``."""
+    m, k = x.shape
+    kw, n = w_q.shape
+    if kw != k or tuple(scale.shape) != (n,):
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, w_q, scale)
+    if x.device.type != "cuda" or w_q.device != x.device or scale.device != x.device:
+        raise ValueError("int8_matmul: operands must share one CUDA device")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int8_matmul: x dtype {x.dtype}")
+    if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("int8_matmul: w_q must be int8, scale f32")
+    if k % 64:
+        raise ValueError(f"int8_matmul: the kernel needs K % 64 == 0, K={k}")
+    xc, w_q, scale = _build.aligned(x), _build.aligned(w_q), _build.aligned(scale)
+    out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    xq = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    rs = torch.empty(m, dtype=torch.float32, device=x.device)
+    err = _build.library().mmor_int8_matmul_bytes(
+        _build.ptr(xc), _build.ptr(xq), _build.ptr(rs), _build.ptr(w_q), _build.ptr(scale),
+        _build.ptr(out), m, k, n, int(x.dtype == torch.bfloat16), _build.stream())
+    _build.check(err, "int8_matmul")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
 
 
 # ------------------------------------------------------------------ int4

@@ -8,21 +8,27 @@ bucket after EOS compaction, K5's piggyback-prefill rows (empty, mid and
 last chunks of the working cache, a chunk with one real column, the decode
 rows bit-identical with and without them), each K5 case at the four
 (weight, KV cache) width pairs, and a cache whose dtype does not match its
-width. Every test needs a CUDA device
+width; K7's f32 and bf16 scales and a fully masked row, K8's
+ragged shapes at both of its kernels, K10a and K10b's ragged N and M above
+one 16-row tile. Every test needs a CUDA device
 and skips without one (the kernels have no CPU mode); run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
 Tolerances: bf16 attention rel_l2 <= 2e-2 (the kernels round the softmax
 weights to bf16 before P.V, unnormalized, where the plain version rounds
 them normalized); W8A8 and W4A8 bit-exact (same integer products, same
-epilogue order); W8A16 rel_l2 <= 1e-3 (f32 sums in another order, one bf16
-rounding); K5 x_out rel_l2 <= 2e-3 and its new K/V columns identical in
+epilogue order), K8 too; W8A16 (K2's, K10a, K10b) rel_l2 <= 1e-3 (f32 sums
+in another order, one bf16 rounding; 1e-5 in f32); K7 rel_l2 <= 3e-4 (f32
+sums in another order, one rounding to the output's dtype; the kernel on
+bf16 copies of f32 scales must miss it); K5 x_out rel_l2 <= 2e-3 and its new K/V columns identical in
 >= 99.9% of entries, never more than 1 apart (f32 sums in another order in
 RMSNorm and softmax can move an int8 activation bin by one); K6 rel_l2
 <= 1e-3 in bf16 (both versions round the same f32 sum once; the sums' order
 differs) and max abs <= 1e-5 in f32, exact where a sample sits on a pixel
 centre with weight 1 or wholly off the map.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -33,6 +39,8 @@ from mmor_tpu_torch.ops import deformable_sampler as D
 from mmor_tpu_torch.ops import mega_decode as M
 from mmor_tpu_torch.ops import quantized_matmul as Q
 from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
+from mmor_tpu_torch.tools.perf import bench_packed as P
+from mmor_tpu_torch.tools.perf import bench_w8a16 as W
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +57,9 @@ def dev():
 def rel_l2(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+K7_BOUND = 3e-4  # chip_smoke.py's, which gives its measurements
 
 
 def randn(gen, *shape, dev, dtype=torch.bfloat16):
@@ -107,6 +118,8 @@ def test_flash_attention_refuses_gradients_and_cpu_segments(dev):
 @pytest.mark.parametrize("m,k,n,dtype", [
     (1, 128, 40, torch.bfloat16),
     (13, 192, 72, torch.bfloat16),   # decode kernel, ragged N
+    (5, 128, 70, torch.bfloat16),    # decode kernel, N % 4 != 0
+    (14, 11008, 4096, torch.bfloat16),  # decode kernel at bench_decode_parts' batch
     (100, 256, 90, torch.bfloat16),  # tiled kernel, ragged M and N, N % 4 != 0
     (70, 128, 64, torch.float32),
 ])
@@ -149,6 +162,91 @@ def test_decode_attention_kernel_last_layer(dev, d, t):
     assert rel_l2(out, ref) <= 1e-2
     with pytest.raises(IndexError):
         A.decode_attention_packed_stack(q, k8, v8, ks, vs, mask, L)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (16, 4096, 11264, torch.bfloat16),  # one layer of bench_stream
+    (3, 192, 70, torch.bfloat16),       # skinny kernel, ragged N, N % 4 != 0
+    (100, 256, 90, torch.bfloat16),     # tiled kernel, ragged M and N, N % 4 != 0
+    (70, 128, 64, torch.float32),
+])
+def test_int8_matmul_unpacked_kernel(dev, m, k, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    x[0] = 0  # a zero row takes row scale 1
+    w_q, scale = Q.quantize_weights(torch.randn(k, n, generator=g, device=dev) * 0.05)
+    before = Q.int8_matmul.launches
+    out = Q.int8_matmul(x, w_q, scale)
+    ref = Q.int8_matmul_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul.launches == before + 1
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out.float().cpu().numpy(), ref.float().cpu().numpy())
+    with pytest.raises(ValueError):
+        Q.int8_matmul(x[:, :100], w_q[:100], scale)  # K % 64 != 0
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_dtype,t", [(torch.bfloat16, 1024), (torch.float32, 200)])
+def test_decode_attention_layer_kernel(dev, scale_dtype, q_dtype, t):
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, H, D = 3, 4, 128
+    k8, v8 = (torch.randint(-127, 128, (B, H, t, D), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand(B, H, t, generator=g, device=dev) * 0.02 + 0.005).to(scale_dtype)
+              for _ in range(2))
+    mask = torch.ones(B, t, dtype=torch.int32, device=dev)
+    mask[1, : t // 2] = 0
+    mask[2] = 0  # no valid slot: uniform weights, as in the plain version
+    q = randn(g, B, H, 1, D, dev=dev, dtype=q_dtype)
+    before = A.decode_attention_packed.launches
+    out = A.decode_attention_packed(q, k8, v8, ks, vs, mask)
+    ref = A.decode_attention_packed_plain(q, k8, v8, ks, vs, mask)
+    torch.cuda.synchronize()
+    assert A.decode_attention_packed.launches == before + 1
+    assert out.shape == (B, H, 1, D) and out.dtype == q_dtype
+    assert rel_l2(out, ref) <= K7_BOUND
+    if scale_dtype == torch.float32:  # bf16 copies of the scales miss the bound
+        cast = A.decode_attention_packed(q, k8, v8, ks.to(torch.bfloat16),
+                                         vs.to(torch.bfloat16), mask)
+        assert rel_l2(cast, ref) > K7_BOUND
+    with pytest.raises(TypeError):
+        A.decode_attention_packed(q, k8, v8, ks, vs.float() if scale_dtype != torch.float32
+                                  else vs.to(torch.bfloat16), mask)
+
+
+@pytest.mark.parametrize("kernel", ["w8a16", "w8p", "w4p"])
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (16, 4096, 11008, torch.bfloat16),  # the benches' shapes
+    (5, 256, 70, torch.bfloat16),       # ragged N, N % 4 != 0
+    (40, 512, 64, torch.float32),       # three 16-row m-tiles, f32 x
+])
+def test_stream_matmul_kernels(dev, kernel, m, k, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    if kernel == "w8a16":
+        w_q, scale = Q.quantize_weights(w)
+        fn, plain, counted = W.w8a16_matmul, W.w8a16_matmul_plain, W.w8a16_matmul
+        args = (x, w_q, scale)
+    else:
+        parts, bits = (4, 8) if kernel == "w8p" else (8, 4)
+        if bits == 8:
+            w_q, scale = Q.quantize_weights(w)
+            w_p = P.pack4_int8(w_q)
+        else:
+            w_q4, s4 = P.quantize_int4_channels(w[None])
+            w_p, scale = P.pack8_int4(w_q4[0]), s4[0]
+        fn = functools.partial(P.wp_matmul, parts=parts, bits=bits)
+        plain = functools.partial(P.wp_matmul_plain, parts=parts, bits=bits)
+        counted, args = P.wp_matmul, (x, w_p, scale)
+    before = counted.launches
+    out = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert rel_l2(out, ref) <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
 
 
 @pytest.mark.parametrize("m,k,n,group,dtype", [

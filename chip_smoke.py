@@ -8,15 +8,19 @@ Run from the root of a checkout, with no arguments:
 Phases (each prints its lines; any failure exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles K1-K8, K5's piggyback-prefill rows (K5-pf) and its int8
-   widths (K5-int8), and the microbenchmark kernels K10a and K10b from
+1. build: compiles K1-K9, K5's piggyback-prefill rows (K5-pf) and its int8
+   widths (K5-int8), and the microbenchmark kernels K10a-K10d from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
-   stack frame and spills of each kernel compiled from ``mega_decode.cu``;
+   stack frame and spills of each kernel compiled from ``mega_decode.cu``
+   and ``fused_mlp.cu``;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
-   serving paths' shapes (K7, K8, K10a and K10b at the microbenchmarks',
-   and K2 also at ``bench_decode_parts``' batch 14 over the 7B shapes; K2
-   and K8 bit for bit; K7 with a control that must miss its bound, the
-   kernel on bf16 copies of f32 scales),
+   serving paths' shapes (K7-K10d at the microbenchmarks': K9 at the 7B
+   decode tail at batch 8 and 14, beside the same tail unfused through
+   three K2 W8A16 or three K10c launches; K2 also at
+   ``bench_decode_parts``' batch 14 over the 7B shapes; K2, K8, K10c's
+   mxu8 mode and K10d bit for bit, K10c's bf16 mode within one bf16 step
+   at the largest output, the benches' spot-check rule; K7 with a control
+   that must miss its bound, the kernel on bf16 copies of f32 scales),
    with the bound stated on each line, and its device time (each case's
    calls queued behind a spin kernel) beside its roofline bound, the plain
    version's time and, where one PyTorch call computes the
@@ -74,11 +78,16 @@ Phases (each prints its lines; any failure exits non-zero):
     sizes (the JAX scripts'), each ``main`` as a user runs it:
     ``bench_stream`` (bf16, K8 W8A8, K10a W8A16 and K10b w8p weight streams
     at M 16 over 8 layers of 4096 x 11264), ``bench_w8a16``,
-    ``bench_packed`` (K10b at int8 and int4) and both parts of
+    ``bench_packed`` (K10b at int8 and int4), both parts of
     ``bench_decode_parts`` (a 7B decode step's weights through K2 at batch
-    14, and K7 over 32 distinct 1024-position caches): their lines, their
-    spot checks (each within its bound) and the launch counts of K2, K7,
-    K8, K10a and K10b.
+    14, and K7 over 32 distinct 1024-position caches), ``bench_bitcast``
+    (K10c's two modes on row-packed words, M 16 over 8 layers of 4096 x
+    11264), ``bench_dma_gather`` (K10d, 2^18 windows of a (92, 160, 32)
+    bf16 map) and ``bench_fused_mlp`` (K9 at the 7B decode tail at batch 8
+    and 14, beside the unfused K2 and K10c chains and cuBLAS bf16, with its
+    phase times): their lines, their
+    spot checks (each within its bound) and the launch counts of K2, K7-K9
+    and K10a-K10d.
 
 Each phase prints its wall time. The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -134,12 +143,25 @@ KERNELS = {
     "K8 int8_matmul": (
         "cuda", "mmor_tpu_torch/csrc/int8_matmul.cu",
         "mmor_tpu/ops/quantized_matmul.py:59"),
+    "K9 fused_o_mlp": (
+        "cuda", "mmor_tpu_torch/csrc/fused_mlp.cu",
+        "mmor_tpu/ops/fused_mlp.py:124"),
     "K10a w8a16_matmul": (
         "cuda", "mmor_tpu_torch/csrc/stream_matmul.cu",
         "tools/perf/bench_w8a16.py:57"),
     "K10b wp_matmul": (
         "cuda", "mmor_tpu_torch/csrc/stream_matmul.cu",
         "tools/perf/bench_packed.py:91"),
+    # K10c's two modes run two existing kernels (a mode a source)
+    "K10c w8b_matmul(bf16)": (
+        "cuda", "mmor_tpu_torch/csrc/stream_matmul.cu",
+        "tools/perf/bench_bitcast.py:72"),
+    "K10c w8b_matmul(mxu8)": (
+        "cuda", "mmor_tpu_torch/csrc/int8_matmul.cu",
+        "tools/perf/bench_bitcast.py:72"),
+    "K10d dma_gather": (
+        "cuda", "mmor_tpu_torch/csrc/window_gather.cu",
+        "tools/perf/bench_dma_gather.py:66"),
 }
 # the kernels each path runs (phase 3: int8, phase 5: int4, phase 7:
 # panoptic, phase 9: overlapped int4, phase 10: int8 megakernel, phase 11:
@@ -158,7 +180,8 @@ PATH_KERNELS = {
                  "K5-int8 mega_decode_layers(int8)",
                  "K5-int8-pf mega_decode_layers(int8,pf)"),
     "perf": ("K2 int8_matmul_packed", "K7 decode_attention_packed", "K8 int8_matmul",
-             "K10a w8a16_matmul", "K10b wp_matmul"),
+             "K9 fused_o_mlp", "K10a w8a16_matmul", "K10b wp_matmul",
+             "K10c w8b_matmul(bf16)", "K10c w8b_matmul(mxu8)", "K10d dma_gather"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -204,6 +227,11 @@ K6_BOUND = {"bf16": 1e-3, "f32": 1e-6}
 # output, so the bound sits between the two, and a control run of the kernel
 # on bf16 copies of the f32 scales must land above it.
 K7_BOUND = 3e-4
+# K9 against its plain version: both take the same bf16 operands and f32
+# products, summed in another order, and round h and m to bf16 once, so an
+# h or m entry at a near-tie can come out one bf16 step apart and carry that
+# step into the output
+K9_BOUND = 1e-3
 # panoptic path (phase 7): frames at the JAX bench's 736x1280 in 3-frame
 # windows, three windows a video
 PANOPTIC_SIZE, PANOPTIC_FRAMES = (736, 1280), 9
@@ -279,17 +307,21 @@ def kernel_modules():
 
 
 def perf_modules():
-    from mmor_tpu_torch.tools.perf import bench_packed, bench_w8a16
+    from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_dma_gather, bench_packed,
+                                           bench_w8a16)
 
-    return bench_w8a16, bench_packed
+    return bench_w8a16, bench_packed, bench_bitcast, bench_dma_gather
 
 
 def _counters() -> dict:
     """Each kernel's launch count: (wrapper, attribute). K5's wrapper counts
     its launches with pf rows (K5-pf) apart from those without, and those at
-    an int8 width (K5-int8) apart from the int4 ones."""
+    an int8 width (K5-int8) apart from the int4 ones; K10c's its mxu8 mode
+    apart from its bf16 mode."""
+    from mmor_tpu_torch.ops import fused_mlp
+
     A, Q, M, D = kernel_modules()
-    W, P = perf_modules()
+    W, P, BC, DG = perf_modules()
     return {"K1 flash_attention": (A.flash_attention, "launches"),
             "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
             "K3 int4_matmul_packed": (Q.int4_matmul_packed, "launches"),
@@ -303,8 +335,12 @@ def _counters() -> dict:
             "K6 ms_deform_attn": (D.ms_deform_attn_sampler, "launches"),
             "K7 decode_attention_packed": (A.decode_attention_packed, "launches"),
             "K8 int8_matmul": (Q.int8_matmul, "launches"),
+            "K9 fused_o_mlp": (fused_mlp.fused_o_mlp, "launches"),
             "K10a w8a16_matmul": (W.w8a16_matmul, "launches"),
-            "K10b wp_matmul": (P.wp_matmul, "launches")}
+            "K10b wp_matmul": (P.wp_matmul, "launches"),
+            "K10c w8b_matmul(bf16)": (BC.w8b_matmul, "launches"),
+            "K10c w8b_matmul(mxu8)": (BC.w8b_matmul, "mxu8_launches"),
+            "K10d dma_gather": (DG.dma_gather, "launches")}
 
 
 def launch_counts() -> dict:
@@ -743,6 +779,7 @@ def kernel_cases(dev):
     for wbits, kvbits in ((4, 8), (8, 4)):
         cases.extend(_k5_cases(dev, g8, wbits, kvbits, with_pf=False, on_path=False))
     cases.extend(_perf_cases(dev))
+    cases.extend(_tail_gather_cases(dev))
     return cases
 
 
@@ -762,7 +799,7 @@ def _perf_cases(dev):
     from mmor_tpu_torch.tools.perf import bench_decode_parts
 
     A, Q, _, _ = kernel_modules()
-    W, P = perf_modules()
+    W, P, _, _ = perf_modules()
     g = torch.Generator(device=dev).manual_seed(10)
     bf = torch.bfloat16
     cases = []
@@ -839,6 +876,101 @@ def _perf_cases(dev):
             lambda xb=xb, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(xb, w_p, s),
             1e-3, 10, True, mb * kdim * 2 + kdim * n + n * 4 + mb * n * 2,
             {"int8": 2.0 * mb * kdim * n}, library=library, exact=True))
+    return cases
+
+
+def one_bf16_step(out, ref) -> dict:
+    """Every output within one bf16 rounding step, at the largest output,
+    of its plain value (the benches' spot-check convention). Both versions
+    round an f32 sum of the same exact products once, summed in another
+    order, so an output that cancels to near zero may sit several of its
+    own steps away; the count of those is reported."""
+    import torch
+
+    o, r = out.float(), ref.float()
+    top = torch.exp2(torch.floor(torch.log2(r.abs().max())) - 7)
+    steps = float((o - r).abs().max() / top)
+    check(steps <= 1.0, f"outputs {steps:.3f} bf16 steps (at the largest output) from "
+                        "their plain values")
+    own = torch.exp2(torch.floor(torch.log2(torch.maximum(o.abs(), r.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny))) - 7)
+    return {"max_abs_in_top_bf16_steps": f"{steps:.3f}",
+            "beyond_own_bf16_step": int(((o - r).abs() > own).sum())}
+
+
+def _tail_gather_cases(dev):
+    """K9 at the 7B decode tail (D = Dq = 4096, F = 11008, batch 8 and 14,
+    bf16 activations and residual), with the same tail unfused through three
+    K2 W8A16 launches or three K10c bf16-mode launches and eager ops timed
+    beside it (``k2_chain_ms``, ``k10c_chain_ms``) and cuBLAS bf16 on the
+    dequantized weights as the library call, and at batch 14 with an f32
+    residual (off the path: the error without the output's bf16 rounding); K10c in both
+    modes at ``bench_bitcast``'s M 16 x 4096 x 11264 (mxu8 bit for bit, bf16
+    within one bf16 step at the largest output); K10d at ``bench_dma_gather``'s 2^18
+    windows, bit for bit, torch indexing of the same windows as the library
+    call. Inputs from a generator of their own."""
+    import torch
+
+    from mmor_tpu_torch.config import LlamaConfig
+    from mmor_tpu_torch.ops import fused_mlp
+    from mmor_tpu_torch.tools.perf import bench_fused_mlp as FM
+
+    _, Q, _, _ = kernel_modules()
+    _, _, BC, DG = perf_modules()
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    cases = []
+    cfg = LlamaConfig()
+    dq, d, f = cfg.dim, cfg.dim, cfg.ffn_dim
+    ops = FM.tail_operands(14, dq, d, f, dev, g)
+    deq = [FM.dequantized(ops[i], ops[i + 1]) for i in (3, 5, 7)]
+    wbytes = FM.weight_bytes(dq, d, f)
+    for b in (8, 14):
+        args = (ops[0][:b].contiguous(), ops[1][:b].contiguous(), *ops[2:])
+
+        def chain(out, ref, args=args):
+            return {f"{name}_ms": f"{time_ms(lambda: fn(*args), 10)[0]:.4f}"
+                    for name, fn in (("k2_chain", FM.k2_chain), ("k10c_chain", FM.k10c_chain))}
+
+        cases.append(Case(
+            "K9 fused_o_mlp", f"7B tail B={b} D={d} F={f}",
+            lambda a=args: fused_mlp.fused_o_mlp(*a),
+            lambda a=args: fused_mlp.fused_o_mlp_plain(*a), K9_BOUND, 20, True,
+            wbytes + (4 * d + 2 * f) * 4 + b * (dq + 2 * d) * 2, {"bf16": 2.0 * b * wbytes},
+            library=lambda a=args: FM.library_tail(*a[:3], *deq), extra=chain))
+    # the same tail with an f32 residual, so an f32 output: no rounding of
+    # the output itself, which at bf16 turns the h and m roundings' small
+    # moves into whole bf16 steps of some outputs (not on a path)
+    args = (ops[0], ops[1].float(), *ops[2:])
+    cases.append(Case(
+        "K9 fused_o_mlp", f"7B tail B=14 D={d} F={f} f32 residual",
+        lambda: fused_mlp.fused_o_mlp(*args), lambda: fused_mlp.fused_o_mlp_plain(*args),
+        K9_BOUND, 20, False, wbytes + (4 * d + 2 * f) * 4 + 14 * (dq * 2 + 2 * d * 4),
+        {"bf16": 2.0 * 14 * wbytes}))
+
+    m, kdim, n = 16, 4096, 11264
+    x = torch.randn(m, kdim, generator=g, device=dev).to(bf)
+    w_q, scale = Q.quantize_weights(torch.randn(kdim, n, generator=g, device=dev) * 0.02)
+    w_p = BC.pack_rows_int8(w_q)
+    nbytes = m * kdim * 2 + kdim * n + n * 4 + m * n * 2
+    library, rows = int_mm_library(*Q.quantize_rows_div(x), w_q, scale, bf)
+    cases.append(Case(
+        "K10c w8b_matmul(mxu8)", f"mxu8 M={m} K={kdim} N={n} library_rows={rows}",
+        lambda: BC.w8b_matmul(x, w_p, scale, mode="mxu8"),
+        lambda: BC.w8b_matmul_plain(x, w_p, scale, mode="mxu8"), 1e-3, 20, True, nbytes,
+        {"int8": 2.0 * m * kdim * n}, library=library, exact=True))
+    cases.append(Case(
+        "K10c w8b_matmul(bf16)", f"bf16 M={m} K={kdim} N={n}",
+        lambda: BC.w8b_matmul(x, w_p, scale), lambda: BC.w8b_matmul_plain(x, w_p, scale),
+        1e-3, 20, True, nbytes, {"bf16": 2.0 * m * kdim * n}, extra=one_bf16_step))
+
+    idx, fmap = DG.make_inputs(1 << 18, dev)
+    nw = idx.shape[0]
+    cases.append(Case(
+        "K10d dma_gather", f"N={nw} map={DG.H}x{DG.W}x{DG.C}",
+        lambda: DG.dma_gather(idx, fmap), lambda: DG.dma_gather_plain(idx, fmap), 0.0, 20,
+        True, nw * 2 * 4 + fmap.numel() * 2 + nw * 2 * 16 * DG.C * 2, {},
+        library=lambda: DG.torch_windows(idx, fmap), exact=True))
     return cases
 
 
@@ -1797,7 +1929,8 @@ def phase_perf_tools(dev) -> dict:
 
     import torch
 
-    from mmor_tpu_torch.tools.perf import (bench_decode_parts, bench_packed, bench_stream,
+    from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_decode_parts, bench_dma_gather,
+                                           bench_fused_mlp, bench_packed, bench_stream,
                                            bench_w8a16)
 
     reset_launch_counts()
@@ -1807,7 +1940,10 @@ def phase_perf_tools(dev) -> dict:
                        ("bench_decode_parts:weights",
                         functools.partial(bench_decode_parts.main, part="weights")),
                        ("bench_decode_parts:attn",
-                        functools.partial(bench_decode_parts.main, part="attn"))):
+                        functools.partial(bench_decode_parts.main, part="attn")),
+                       ("bench_bitcast", bench_bitcast.main),
+                       ("bench_dma_gather", bench_dma_gather.main),
+                       ("bench_fused_mlp", bench_fused_mlp.main)):
         t = time.perf_counter()
         try:
             result = main()
@@ -1834,7 +1970,7 @@ def _build_phase(build) -> None:
     build.library()
     say("1 build", seconds=f"{secs:.2f}", library=os.path.relpath(path, ROOT))
     log = os.path.join(os.path.dirname(path), "nvcc.log")
-    if os.path.exists(log):  # registers and spills of K5's instantiations
+    if os.path.exists(log):  # registers and spills of K5's and K9's kernels
         for line in nvcc_report(open(log).read()):
             say("1 build", **line)
 
@@ -1842,7 +1978,8 @@ def _build_phase(build) -> None:
 def nvcc_report(log: str) -> list[dict]:
     """``-Xptxas -v``'s registers, stack frame and spills of each kernel
     compiled from ``mega_decode.cu`` (its four (WBITS, KVBITS)
-    instantiations and the W4A8/W8A8 cores), one dict a kernel, under the
+    instantiations and the W4A8/W8A8 cores) and ``fused_mlp.cu`` (K9, whose
+    registers set its cooperative grid), one dict a kernel, under the
     kernel's mangled name."""
     import re
 
@@ -1856,7 +1993,7 @@ def nvcc_report(log: str) -> list[dict]:
                           r"(\d+) bytes spill loads", line):
             frame = "/".join(m.groups())
         if (m := re.search(r"Used (\d+) registers", line)) and name:
-            if source.endswith("mega_decode.cu"):
+            if source.endswith(("mega_decode.cu", "fused_mlp.cu")):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
             name, frame = None, ""

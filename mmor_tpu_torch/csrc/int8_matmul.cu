@@ -1,10 +1,12 @@
-// K2: packed int8 weight matmul, x @ (unpack(w_p) * scale), and K8: the
-// same W8A8 product on an unpacked row-major int8 weight.
+// K2: packed int8 weight matmul, x @ (unpack(w_p) * scale), K8: the same
+// W8A8 product on an unpacked row-major int8 weight, and K10c's mxu8 mode:
+// K2's packed words with K8's activation rule.
 //
 // Replaces mmor_tpu/ops/quantized_matmul.py::int8_matmul_packed
-// (_packed_kernel, the pl.pallas_call at :250) and
+// (_packed_kernel, the pl.pallas_call at :250),
 // mmor_tpu/ops/quantized_matmul.py::int8_matmul (_kernel, the pl.pallas_call
-// at :102).
+// at :102) and the mxu8 mode of tools/perf/bench_bitcast.py::w8b_matmul
+// (_kernel, the pl.pallas_call at :95).
 //
 // What bounds it on the H100: at decode (M = batch = 8) every weight byte
 // is read once per token for 16 multiply-adds, so the product is bound by
@@ -38,6 +40,10 @@
 //    4-byte load a row and transposes the 4 x 4 bytes into their words) and
 //    the activation rule (QuantRule::kDivide: x / row_scale in f32, K8's
 //    quantized_matmul.py:81-84). Its epilogue is K2's, in JAX's order.
+//  - K10c's mxu8 mode is the same two kernels on K2's own packed words
+//    (WLayout::kWords) with K8's rule (QuantRule::kDivide): bench_bitcast's
+//    pack_rows_int8 is pack_int8_rows, and its epilogue, acc * scale in f32
+//    and then times the row scale, is K2's.
 //  - W8A16 (int8_mxu off): a plain FMA kernel over bf16/f32 activations and
 //    int8 weights converted in registers, f32 accumulation, times col_scale.
 
@@ -284,6 +290,23 @@ extern "C" int mmor_int8_matmul_bytes(const void* x, void* xq, void* row_scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   constexpr WLayout L = WLayout::kBytes;
+  constexpr QuantRule R = QuantRule::kDivide;
+  return x_bf16
+             ? (int)launch_w8a8<__nv_bfloat16, L, R>(x, xq, row_scale, w, sc, out, m, k, n, s)
+             : (int)launch_w8a8<float, L, R>(x, xq, row_scale, w, sc, out, m, k, n, s);
+}
+
+// K10c mxu8, W8A8 on packed words with K8's activation rule: x (M, K) bf16
+// (x_bf16 = 1) or f32; xq, row_scale as above (filled by x / row_scale in
+// f32); w (K/4, N) int32 packed by pack_int8_rows, scale (N,) f32; out (M, N)
+// in x's dtype. K must be a multiple of 64.
+extern "C" int mmor_int8_matmul_w8b(const void* x, void* xq, void* row_scale, const void* w,
+                                    const void* scale, void* out, int m, int k, int n,
+                                    int x_bf16, void* stream) {
+  if (k % 64 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  constexpr WLayout L = WLayout::kWords;
   constexpr QuantRule R = QuantRule::kDivide;
   return x_bf16
              ? (int)launch_w8a8<__nv_bfloat16, L, R>(x, xq, row_scale, w, sc, out, m, k, n, s)

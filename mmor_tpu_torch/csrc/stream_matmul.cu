@@ -1,9 +1,12 @@
-// K10a: W8A16 on an unpacked int8 weight, and K10b: W8A16 on slab-packed
-// int8 or int4 words, the kernels of the weight-stream microbenchmarks.
+// K10a: W8A16 on an unpacked int8 weight, K10b: W8A16 on slab-packed int8
+// or int4 words, and K10c's bf16 mode: W8A16 on row-packed int8 words, the
+// kernels of the weight-stream microbenchmarks.
 //
 // Replaces tools/perf/bench_w8a16.py::w8a16_matmul (_w8a16_kernel, the
-// pl.pallas_call at :75) and tools/perf/bench_packed.py::wp_matmul
-// (make_wp_kernel, the pl.pallas_call at :109).
+// pl.pallas_call at :75), tools/perf/bench_packed.py::wp_matmul
+// (make_wp_kernel, the pl.pallas_call at :109) and the bf16 mode of
+// tools/perf/bench_bitcast.py::w8b_matmul (_kernel, the pl.pallas_call at
+// :95).
 //
 // What bounds it on the H100: device-memory bytes. At the benchmarks' M = 16
 // every weight byte (or half byte) is read once for 16 multiply-adds, far
@@ -32,12 +35,18 @@
 //  - Slab8 (K10b w8p): pack4_int8's (K/4, N) int32, word (r, n) holds rows
 //    r + i*K/4 in byte i;
 //  - Slab4 (K10b w4p): pack8_int4's (K/8, N) int32, rows r + i*K/8 in
-//    nibble i (values in [-8, 7], no bias): eight values, two k-steps a word.
+//    nibble i (values in [-8, 7], no bias): eight values, two k-steps a word;
+//  - row words (K10c bf16, bench_bitcast's w8b_matmul): pack_int8_rows'
+//    (K/4, N) int32, rows 4r..4r+3 in bytes 0..3 of word r. That is Slab8's
+//    word format with x in its natural order (the k of word r already sit
+//    at x[4r..4r+3]), so Slab8's instantiation runs it and the wrapper
+//    passes x as it is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "weight_words.cuh"
 
 namespace {
@@ -54,25 +63,8 @@ template <WLayout L, int kBits> struct Format {
   }
 };
 using Bytes = Format<WLayout::kBytes, 8>;  // K10a
-using Slab8 = Format<WLayout::kWords, 8>;  // K10b w8p
+using Slab8 = Format<WLayout::kWords, 8>;  // K10b w8p; K10c bf16 (row words)
 using Slab4 = Format<WLayout::kWords, 4>;  // K10b w4p
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two bf16 values in one register, the first in the low half (the lower k)
-__device__ __forceinline__ uint32_t pair(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-__device__ __forceinline__ uint16_t bf16_bits(int v) {  // exact for |v| <= 256
-  const __nv_bfloat16 b = __float2bfloat16_rn((float)v);
-  return *reinterpret_cast<const uint16_t*>(&b);
-}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
@@ -198,7 +190,8 @@ extern "C" int mmor_w8a16_bytes(const void* x, const void* w, const void* scale,
 // K10b: x (M, K) bf16 in word order (x[m, parts*r + i] holds column
 // r + i*K/parts of the row); w (K/parts, N) int32 slab-packed (bits 8: parts
 // 4, pack4_int8; bits 4: parts 8, pack8_int4); scale (N,) f32; out as above.
-// K must be a multiple of 16 (bits 8) or 32 (bits 4).
+// K must be a multiple of 16 (bits 8) or 32 (bits 4). K10c's bf16 mode is
+// bits 8 on pack_int8_rows' words with x in its natural order.
 extern "C" int mmor_wp_matmul(const void* x, const void* w, const void* scale, void* out,
                               int m, int k, int n, int bits, int out_bf16, void* stream) {
   if (bits == 8) return launch<Slab8>(x, w, scale, out, m, k, n, out_bf16, stream);

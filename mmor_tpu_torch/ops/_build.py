@@ -44,6 +44,9 @@ SIGNATURES = {
     "mmor_ms_deform_attn": (_P,) * 5 + (_I,) * 8 + (_P,),
     "mmor_w8a16_bytes": (_P,) * 4 + (_I,) * 4 + (_P,),
     "mmor_wp_matmul": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "mmor_int8_matmul_w8b": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "mmor_fused_o_mlp": (_P,) * 15 + (_I,) * 5 + (_F, _P),
+    "mmor_window_gather": (_P,) * 3 + (_I,) * 4 + (_P,),
 }
 
 

@@ -10,6 +10,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "mmor_tpu")
 

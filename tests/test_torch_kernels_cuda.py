@@ -10,7 +10,9 @@ rows bit-identical with and without them), each K5 case at the four
 (weight, KV cache) width pairs, and a cache whose dtype does not match its
 width; K7's f32 and bf16 scales and a fully masked row, K8's
 ragged shapes at both of its kernels, K10a and K10b's ragged N and M above
-one 16-row tile. Every test needs a CUDA device
+one 16-row tile; K9 at one row, at the 7B tail, above one 16-row tile and
+above 64 rows, with an f32 residual, and its refusals; K10c's two modes at
+ragged shapes; K10d's windows that reach outside the map. Every test needs a CUDA device
 and skips without one (the kernels have no CPU mode); run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
@@ -25,7 +27,10 @@ bf16 copies of f32 scales must miss it); K5 x_out rel_l2 <= 2e-3 and its new K/V
 RMSNorm and softmax can move an int8 activation bin by one); K6 rel_l2
 <= 1e-3 in bf16 (both versions round the same f32 sum once; the sums' order
 differs) and max abs <= 1e-5 in f32, exact where a sample sits on a pixel
-centre with weight 1 or wholly off the map.
+centre with weight 1 or wholly off the map; K9 rel_l2 <= 1e-3 (the same
+bf16 operands and f32 products summed in another order; h and m round one
+bf16 step apart at near-ties) and bit-identical from call to call; K10c
+mxu8 bit-exact (K2's kernels, K8's rule), bf16 as K10b; K10d bit-exact.
 """
 
 import functools
@@ -36,11 +41,17 @@ import torch
 
 from mmor_tpu_torch.ops import attention as A
 from mmor_tpu_torch.ops import deformable_sampler as D
+from mmor_tpu_torch.ops import fused_mlp as FM
 from mmor_tpu_torch.ops import mega_decode as M
 from mmor_tpu_torch.ops import quantized_matmul as Q
 from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
+from mmor_tpu_torch.tools.perf import bench_bitcast as BC
+from mmor_tpu_torch.tools.perf import bench_dma_gather as DG
 from mmor_tpu_torch.tools.perf import bench_packed as P
 from mmor_tpu_torch.tools.perf import bench_w8a16 as W
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 pytestmark = pytest.mark.cuda
 
@@ -507,3 +518,111 @@ def test_ms_deform_attn_kernel_copies_non_contiguous_inputs(dev):
         D.ms_deform_attn_sampler(value, shapes, loc, attn.float())
     with pytest.raises(NotImplementedError):
         D.ms_deform_attn_sampler(value.float().requires_grad_(), shapes, loc, attn.float())
+
+
+K9_BOUND = 1e-3  # chip_smoke.py's
+
+
+@pytest.mark.parametrize("b,dq,d,f,res_dtype", [
+    (1, 256, 256, 512, torch.bfloat16),
+    (14, 4096, 4096, 11008, torch.bfloat16),  # the 7B decode tail
+    (20, 512, 256, 768, torch.float32),       # two 16-row m-tiles, f32 residual
+    (70, 256, 512, 1024, torch.bfloat16),     # five 16-row m-tiles, h chunks over 2 rows
+])
+def test_fused_o_mlp_kernel(dev, b, dq, d, f, res_dtype):
+    """K9 against its plain version, one cooperative launch a call, the same
+    output bit for bit from two calls (every sum in a fixed order)."""
+    from mmor_tpu_torch.tools.perf.bench_fused_mlp import tail_operands
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    args = tail_operands(b, dq, d, f, dev, g, res_dtype)
+    before = FM.fused_o_mlp.launches
+    out = FM.fused_o_mlp(*args)
+    again = FM.fused_o_mlp(*args)
+    ref = FM.fused_o_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert FM.fused_o_mlp.launches == before + 2
+    assert out.dtype == res_dtype and out.shape == (b, d)
+    assert torch.equal(out, again)
+    assert rel_l2(out, ref) <= K9_BOUND
+
+
+def test_fused_o_mlp_kernel_refuses_bad_operands(dev):
+    from mmor_tpu_torch.tools.perf.bench_fused_mlp import tail_operands
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    for dq, d in ((264, 256), (256, 272)):  # Dq % 16 != 0, D % 32 != 0
+        with pytest.raises(ValueError, match="Dq % 16, D % 32"):
+            FM.fused_o_mlp(*tail_operands(4, dq, d, 512, dev, g))
+    args = list(tail_operands(4, 256, 256, 512, dev, g))
+    with pytest.raises(ValueError, match="phase_ns"):
+        FM.fused_o_mlp(*args, phase_ns=torch.zeros(5, dtype=torch.int32, device=dev))
+    args[4] = args[4].to(torch.bfloat16)  # a bf16 scale
+    with pytest.raises(TypeError):
+        FM.fused_o_mlp(*args)
+
+
+def test_fused_o_mlp_kernel_phase_stamps(dev):
+    """With ``phase_ns`` K9 records its clock at its start, barriers and end
+    (in order) and gives the same output as without."""
+    from mmor_tpu_torch.tools.perf.bench_fused_mlp import tail_operands
+
+    args = tail_operands(14, 512, 512, 1024, dev, torch.Generator(device=dev).manual_seed(25))
+    stamps = torch.full((5,), 7, dtype=torch.int64, device=dev)
+    out = FM.fused_o_mlp(*args, phase_ns=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(out, FM.fused_o_mlp(*args))
+    t = stamps.cpu()
+    assert bool((t[1:] >= t[:-1]).all()) and int(t[0]) > 7
+    phases = FM.phase_times_us(stamps)
+    assert phases["launch"] == pytest.approx(sum(v for k, v in phases.items() if k != "launch"))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "mxu8"])
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (16, 4096, 11264, torch.bfloat16),  # bench_bitcast's shape
+    (5, 256, 70, torch.bfloat16),       # ragged N, N % 4 != 0
+    (40, 512, 64, torch.float32),       # above one 16-row tile (mxu8: the tiled kernel)
+])
+def test_w8b_matmul_kernel(dev, mode, m, k, n, dtype):
+    """K10c against its plain version: mxu8 bit for bit, bf16 within
+    rel_l2 1e-3 (1e-5 in f32); each mode counts its own launches."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    w_q, scale = Q.quantize_weights(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    w_p = BC.pack_rows_int8(w_q)
+    counter = "mxu8_launches" if mode == "mxu8" else "launches"
+    before = getattr(BC.w8b_matmul, counter)
+    out = BC.w8b_matmul(x, w_p, scale, mode=mode)
+    ref = BC.w8b_matmul_plain(x, w_p, scale, mode=mode)
+    torch.cuda.synchronize()
+    assert getattr(BC.w8b_matmul, counter) == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    if mode == "mxu8":
+        assert torch.equal(out, ref)
+    else:
+        assert rel_l2(out, ref) <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("hwc,n", [((92, 160, 32), 4096), ((5, 40, 8), 300)])
+def test_dma_gather_kernel(dev, hwc, n):
+    """K10d equals its plain version bit for bit, windows reaching outside
+    the map (negative or too large y or x) included, which are zeros."""
+    h, w, c = hwc
+    g = torch.Generator(device=dev).manual_seed(24)
+    f = randn(g, h, w, c, dev=dev)
+    idx = torch.stack([torch.randint(0, h - 1, (n,), generator=g, device=dev),
+                       torch.randint(0, w - 15, (n,), generator=g, device=dev)], 1)
+    # y = -1, y + 2 > H, x8 = -8, x8 + 16 > W (outside); the last window of the
+    # map, and one whose x rounds down to it (inside)
+    idx[:6] = torch.tensor([[-1, 0], [h - 1, 0], [0, -3], [0, w - 8], [h - 2, w - 16],
+                            [0, w - 9]], device=dev)
+    idx = idx.to(torch.int32)
+    before = DG.dma_gather.launches
+    out = DG.dma_gather(idx, f)
+    ref = DG.dma_gather_plain(idx, f)
+    torch.cuda.synchronize()
+    assert DG.dma_gather.launches == before + 1
+    assert out.shape == (n, 2, 16, c)
+    assert torch.equal(out, ref)
+    assert not out[:4].any() and out[4:6].all()

@@ -52,6 +52,9 @@ from mmor_tpu_torch.ops import mega_decode as tmd
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
 from mmor_tpu_torch.sg.converters import parse_sg_string
 from mmor_tpu_torch.utils.convert_jax import convert_llama, convert_mm2sg, mega_cache_from_jax
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 MEGA_LLAMA = dict(vocab_size=128, dim=512, n_layers=2, n_heads=4, n_kv_heads=4,
                   ffn_dim=1024, max_seq_len=64, dtype=jnp.bfloat16,

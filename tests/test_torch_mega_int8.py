@@ -75,6 +75,9 @@ from test_torch_mega import (
     tt,
 )
 from test_torch_overlap import NEAR_TIE, _assert_columns, _batch
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 X_BOUND, KV_AGREE, PF_KV_AGREE, SCALE_BOUND = 2e-3, 0.999, 0.998, 1e-3
 ORACLE_BIN_SHARE, ORACLE_REL = 0.9, 0.05

@@ -31,6 +31,9 @@ from mmor_tpu_torch.inference import ByteTokenizer, SceneGraphPredictor
 from mmor_tpu_torch.models import llama as tllama
 from mmor_tpu_torch.models import mm2sg as tmm2sg
 from mmor_tpu_torch.utils.convert_jax import convert_llama, convert_mm2sg
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 F32_TOL = 1e-5
 LOGIT_TOL = 1e-4

@@ -24,6 +24,9 @@ from mmor_tpu_torch.ops import attention as tattn
 from mmor_tpu_torch.ops import image_preproc as tpre
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
 from mmor_tpu_torch.ops import serialization as tser
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 F32_TOL = 1e-5
 

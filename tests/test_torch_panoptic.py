@@ -41,6 +41,9 @@ from mmor_tpu_torch.models.segmenter import normalize_pixels
 from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
 from mmor_tpu_torch.ops.deformable_sampler import ms_deform_attn_sampler
 from mmor_tpu_torch.utils.convert_jax import convert_dvis
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 # the JAX gather core, jitted: one compile a shape instead of eager dispatch
 # of its many small ops (~2 s a shape on a CPU)

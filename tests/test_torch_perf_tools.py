@@ -1,4 +1,4 @@
-"""The port's microbenchmark kernels (K7, K8, K10a, K10b) and their tools
+"""The port's microbenchmark kernels (K7, K8, K10a-K10d) and their tools
 (``mmor_tpu_torch/tools/perf``) against the JAX package, on the CPU.
 
 The same seeded numpy inputs go through the JAX side and the port's plain
@@ -7,8 +7,11 @@ versions (CPU tensors; the CUDA kernels are held to those on the card by
 each TPU kernel body runs in Pallas interpret mode, inside a ``pallas_call``
 built here around the module's own body (``quantized_matmul._kernel``,
 ``attention._packed_decode_kernel``, ``bench_w8a16._w8a16_kernel``,
-``bench_packed.make_wp_kernel``); K7 and K8 are also held to their JAX
-wrappers' CPU paths.
+``bench_packed.make_wp_kernel``), or through the JAX script's own wrapper
+with its ``pl.pallas_call`` in interpret mode (``bench_bitcast.w8b_matmul``,
+and ``bench_dma_gather.dma_gather`` with its ``N``, ``CHUNK`` and ``NSEM``
+cut to 64, 32 and 4); K7 and K8 are also held to their JAX wrappers' CPU
+paths.
 
 Tolerances:
 - K8 against JAX's row quantization, the interpret body and the row rescale:
@@ -23,10 +26,16 @@ Tolerances:
 - K10a and K10b against the interpret bodies: rel_l2 <= 1e-6 in f32 (f32
   sums in another order; measured 8e-9 to 5e-8); in bf16, every output
   within one bf16 step of its value (both round an f32 sum once).
-- The slab-packed words equal JAX's exactly.
+- K10c against the interpret body: mxu8 bit for bit (K8's activation rule,
+  the same integer products, the same epilogue order); bf16 as K10a.
+- K10d against the interpret body, and its (2, 2, C) torch twin against
+  ``xla_gather``: exact (copies).
+- The slab-packed words, and ``bench_bitcast.pack_rows_int8``'s row words,
+  equal JAX's exactly.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -42,10 +51,15 @@ from mmor_tpu.ops import quantized_matmul as jqmm
 from mmor_tpu_torch.config import LlamaConfig
 from mmor_tpu_torch.ops import attention as tattn
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
-from mmor_tpu_torch.tools.perf import (bench_decode_parts, bench_packed, bench_stream,
-                                       bench_w8a16)
+from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_decode_parts, bench_dma_gather,
+                                       bench_fused_mlp, bench_packed, bench_stream, bench_w8a16)
+from tools.perf import bench_bitcast as jbitcast
+from tools.perf import bench_dma_gather as jdma
 from tools.perf import bench_packed as jpacked
 from tools.perf import bench_w8a16 as jw8a16
+from torch_threads import share_cores
+
+share_cores()  # parallel test workers oversubscribe the cores
 
 M, K = 16, 256
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -276,6 +290,73 @@ def test_wp_matmul_matches_jax_kernel_body(parts, bits, dtype):
     assert_close(got, ref, dtype)
 
 
+# ------------------------------------------------------------ K10c, K10d
+def interpret_pl() -> types.SimpleNamespace:
+    """``pallas`` as a JAX script sees it, with ``pallas_call`` in interpret
+    mode."""
+    view = types.SimpleNamespace(**{k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")})
+    view.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    return view
+
+
+def test_row_packing_equals_jax():
+    w_q = np.random.default_rng(7).integers(-128, 128, (K, 256), dtype=np.int8)
+    got = bench_bitcast.pack_rows_int8(torch.from_numpy(w_q))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jbitcast.pack_rows_int8(
+        jnp.asarray(w_q))))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["bf16", "mxu8"])
+def test_w8b_matmul_matches_jax_kernel_body(monkeypatch, mode, dtype):
+    jdt, tdt = DTYPES[dtype]
+    monkeypatch.setattr(jbitcast, "pl", interpret_pl())
+    x, _, w_q, scale = weights(384, seed=8)
+    w_p = np.array(jbitcast.pack_rows_int8(jnp.asarray(w_q)))
+    ref = jnp_np(jbitcast.w8b_matmul(jnp.asarray(x).astype(jdt), jnp.asarray(w_p),
+                                     jnp.asarray(scale), mode=mode))
+    got = bench_bitcast.w8b_matmul(torch.from_numpy(x).to(tdt), torch.from_numpy(w_p),
+                                   torch.from_numpy(scale), mode=mode)
+    assert got.dtype == tdt and got.shape == (M, 384)
+    if mode == "mxu8":
+        np.testing.assert_array_equal(to_np(got), ref)
+    else:
+        assert_close(got, ref, dtype)
+
+
+def gather_inputs(n: int, seed: int):
+    """A bf16-valued (H, W, C) map as f32 numpy and (n, 2) int32 pairs in the
+    JAX script's ranges."""
+    rng = np.random.default_rng(seed)
+    f = jnp_np(jnp.asarray(rng.standard_normal((jdma.H, jdma.W, jdma.C), np.float32)
+                           ).astype(jnp.bfloat16))
+    idx = np.stack([rng.integers(0, jdma.H - 1, n), rng.integers(0, jdma.W - 17, n)], 1)
+    return idx.astype(np.int32), f
+
+
+def test_dma_gather_matches_jax_kernel(monkeypatch):
+    for name, value in (("N", 64), ("CHUNK", 32), ("NSEM", 4)):
+        monkeypatch.setattr(jdma, name, value)
+    monkeypatch.setattr(jdma, "pl", interpret_pl())
+    idx, f = gather_inputs(64, seed=9)
+    ref = jnp_np(jdma.dma_gather.__wrapped__(jnp.asarray(idx),
+                                             jnp.asarray(f).astype(jnp.bfloat16)))
+    got = bench_dma_gather.dma_gather(torch.from_numpy(idx),
+                                      torch.from_numpy(f).to(torch.bfloat16))
+    assert got.shape == (64, 2, 16, jdma.C) and got.dtype == torch.bfloat16
+    assert np.abs(ref).min(axis=(1, 2, 3)).max() > 0  # the DMAs filled every window
+    np.testing.assert_array_equal(to_np(got), ref)
+
+
+def test_torch_corners_match_xla_gather():
+    idx, f = gather_inputs(200, seed=10)
+    ref = jnp_np(jdma.xla_gather(jnp.asarray(idx), jnp.asarray(f).astype(jnp.bfloat16)))
+    got = bench_dma_gather.torch_corners(torch.from_numpy(idx).long(),
+                                         torch.from_numpy(f).to(torch.bfloat16))
+    np.testing.assert_array_equal(to_np(got), ref)
+
+
 # --------------------------------------------------------------- benches
 TINY = dict(m=M, k=K, layers=2, repeats=1)
 BENCHES = {
@@ -293,6 +374,13 @@ BENCHES = {
         lambda: bench_decode_parts.main("cpu", part="attn", batch=2, t=24, repeats=1,
                                         cfg=LlamaConfig.tiny()),
         ("attention only (2 layers)",)),
+    "bench_bitcast": (lambda: bench_bitcast.main("cpu", n=256, **TINY),
+                      ("torch_bf16", "w8b_bf16", "w8b_mxu8")),
+    "bench_dma_gather": (lambda: bench_dma_gather.main("cpu", n=64, repeats=1),
+                         ("torch_corners", "torch_windows", "window_gather")),
+    "bench_fused_mlp": (
+        lambda: bench_fused_mlp.main("cpu", batches=(3, 17), cfg=LlamaConfig.tiny(), repeats=1),
+        ("k9_fused B=3", "k2_chain B=3", "k10c_chain B=3", "torch_bf16 B=17")),
 }
 
 
@@ -312,5 +400,7 @@ def test_bench_main_runs_on_cpu(bench, capsys):
 def test_benches_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="needs a CUDA device"):
-        bench_stream.main()
+    for main in (bench_stream.main, bench_bitcast.main, bench_dma_gather.main,
+                 bench_fused_mlp.main):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            main()

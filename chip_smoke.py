@@ -9,12 +9,12 @@ Phases (each prints its lines; any failure exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
 1. build: compiles K1-K9, K5's piggyback-prefill rows (K5-pf) and its int8
-   widths (K5-int8), and the microbenchmark kernels K10a-K10d from
+   widths (K5-int8), and the microbenchmark kernels K10a-K10f from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
    stack frame and spills of each kernel compiled from ``mega_decode.cu``
    and ``fused_mlp.cu``;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
-   serving paths' shapes (K7-K10d at the microbenchmarks': K9 at the 7B
+   serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
    three K2 W8A16 or three K10c launches; K2 also at
    ``bench_decode_parts``' batch 14 over the 7B shapes; K2, K8, K10c's
@@ -25,7 +25,15 @@ Phases (each prints its lines; any failure exits non-zero):
    calls queued behind a spin kernel) beside its roofline bound, the plain
    version's time and, where one PyTorch call computes the
    same function, that call's time (``torch._int_mm`` on the int8 operands
-   with the rescales for K2 and K8, its rows padded to 32 where fewer); K5 at 7B
+   with the rescales for K2, K8 and K10e's int8 x-read, its rows padded to
+   32 where fewer; ``torch._weight_int8pack_mm`` for the W8A16 kernels K10a,
+   K10b's w8p, K10c's bf16 mode and K10e's bf16 x-read;
+   ``torch._weight_int4pack_mm`` for K10b's w4p and K10e's nibble product,
+   each first held to the dequantized product within LIBRARY_BOUND); K10e
+   (x-read with int8 x bit for bit at both x layouts, with bf16 x within one
+   bf16 step, tiny bit for bit, nibble within one bf16 step, the row probe's
+   acc within PROBE_BOUND and its rows within one bf16 step) and K10f (copies
+   bit for bit, products within PROBE_BOUND) at their scripts' shapes; K5 at 7B
    widths and depth 2 at all four (weight, KV cache) width pairs; K5-pf and
    K5-int8-pf, at (4, 4) and (8, 8) (8 decode rows, a 128-row chunk, a
    768-column working cache), each layer alone, with the decode rows
@@ -85,9 +93,12 @@ Phases (each prints its lines; any failure exits non-zero):
     11264), ``bench_dma_gather`` (K10d, 2^18 windows of a (92, 160, 32)
     bf16 map) and ``bench_fused_mlp`` (K9 at the 7B decode tail at batch 8
     and 14, beside the unfused K2 and K10c chains and cuBLAS bf16, with its
-    phase times): their lines, their
-    spot checks (each within its bound) and the launch counts of K2, K7-K9
-    and K10a-K10d.
+    phase times), all four parts of ``bench_megakernel_probe`` (K10e: x held
+    in shared memory against x read from L2, launch overhead with a CUDA
+    graph, int4 nibbles against int8, the row probe) and
+    ``probe_mosaic_reshape`` (K10f, whose all-ones sums must equal the JAX
+    script's): their lines, their spot checks (each within its bound) and
+    the launch counts of K2, K7-K9 and K10a-K10f.
 
 Each phase prints its wall time. The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -162,6 +173,31 @@ KERNELS = {
     "K10d dma_gather": (
         "cuda", "mmor_tpu_torch/csrc/window_gather.cu",
         "tools/perf/bench_dma_gather.py:66"),
+    # K10e: one kernel a pallas_call of the megakernel probe (x-read's two x
+    # layouts are two of them)
+    "K10e xread_matmul(stack)": (
+        "cuda", "mmor_tpu_torch/csrc/megakernel_probe.cu",
+        "tools/perf/bench_megakernel_probe.py:145"),
+    "K10e xread_matmul(dslice)": (
+        "cuda", "mmor_tpu_torch/csrc/megakernel_probe.cu",
+        "tools/perf/bench_megakernel_probe.py:167"),
+    "K10e tiny": (
+        "cuda", "mmor_tpu_torch/csrc/megakernel_probe.cu",
+        "tools/perf/bench_megakernel_probe.py:198"),
+    "K10e nibble_matmul": (
+        "cuda", "mmor_tpu_torch/csrc/megakernel_probe.cu",
+        "tools/perf/bench_megakernel_probe.py:287"),
+    "K10e rowrw": (
+        "cuda", "mmor_tpu_torch/csrc/megakernel_probe.cu",
+        "tools/perf/bench_megakernel_probe.py:358"),
+    # K10f: the probe's one pallas_call runs five kernels: two copies (a, b)
+    # and three products (c, d, e)
+    "K10f reshape_copy": (
+        "cuda", "mmor_tpu_torch/csrc/reshape_probe.cu",
+        "tools/perf/probe_mosaic_reshape.py:30"),
+    "K10f st_product": (
+        "cuda", "mmor_tpu_torch/csrc/reshape_probe.cu",
+        "tools/perf/probe_mosaic_reshape.py:30"),
 }
 # the kernels each path runs (phase 3: int8, phase 5: int4, phase 7:
 # panoptic, phase 9: overlapped int4, phase 10: int8 megakernel, phase 11:
@@ -181,7 +217,9 @@ PATH_KERNELS = {
                  "K5-int8-pf mega_decode_layers(int8,pf)"),
     "perf": ("K2 int8_matmul_packed", "K7 decode_attention_packed", "K8 int8_matmul",
              "K9 fused_o_mlp", "K10a w8a16_matmul", "K10b wp_matmul",
-             "K10c w8b_matmul(bf16)", "K10c w8b_matmul(mxu8)", "K10d dma_gather"),
+             "K10c w8b_matmul(bf16)", "K10c w8b_matmul(mxu8)", "K10d dma_gather",
+             "K10e xread_matmul(stack)", "K10e xread_matmul(dslice)", "K10e tiny",
+             "K10e nibble_matmul", "K10e rowrw", "K10f reshape_copy", "K10f st_product"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -252,6 +290,19 @@ OVERLAP_CHUNK, OVERLAP_WARM, OVERLAP_SHORT, OVERLAP_LONG = 128, 2, 2, 4
 # finer); so every layer is also held to within ORACLE_FLOOR_MARGIN below
 # its floor's share.
 ORACLE_BIN_SHARE, ORACLE_REL, ORACLE_FLOOR_MARGIN = 0.9, 0.05, 0.05
+# a weight-only library call (torch._weight_int8pack_mm, _weight_int4pack_mm)
+# against the dequantized f32 product: it rounds the scales and its output
+# to bf16 (each at most 2^-9 relative), so a right operand layout stays
+# under this bound and a wrong one lands near 1
+LIBRARY_BOUND = 1e-2
+# K10e and K10f against their plain versions: the products' full f32 sums
+# (the row probe's acc, K10f's c, d and e) differ only by the order of f32
+# sums
+PROBE_BOUND = 1e-6
+# probe_mosaic_reshape's all-ones out_sums, as the JAX script prints them
+# (its kernels in Pallas interpret mode on the CPU;
+# tests/test_torch_megakernel_probe.py holds the port's CPU main to them)
+RESHAPE_SUMS = (327680.0, 40960.0, 10485760.0, 10485760.0, 4096.0)
 
 
 def say(phase: str, **fields) -> None:
@@ -313,15 +364,23 @@ def perf_modules():
     return bench_w8a16, bench_packed, bench_bitcast, bench_dma_gather
 
 
+def probe_modules():
+    from mmor_tpu_torch.tools.perf import bench_megakernel_probe, probe_mosaic_reshape
+
+    return bench_megakernel_probe, probe_mosaic_reshape
+
+
 def _counters() -> dict:
     """Each kernel's launch count: (wrapper, attribute). K5's wrapper counts
     its launches with pf rows (K5-pf) apart from those without, and those at
     an int8 width (K5-int8) apart from the int4 ones; K10c's its mxu8 mode
-    apart from its bf16 mode."""
+    apart from its bf16 mode; K10e's x-read its 2-D x (line c) apart from its
+    tile stack (line b)."""
     from mmor_tpu_torch.ops import fused_mlp
 
     A, Q, M, D = kernel_modules()
     W, P, BC, DG = perf_modules()
+    MP, RP = probe_modules()
     return {"K1 flash_attention": (A.flash_attention, "launches"),
             "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
             "K3 int4_matmul_packed": (Q.int4_matmul_packed, "launches"),
@@ -340,7 +399,14 @@ def _counters() -> dict:
             "K10b wp_matmul": (P.wp_matmul, "launches"),
             "K10c w8b_matmul(bf16)": (BC.w8b_matmul, "launches"),
             "K10c w8b_matmul(mxu8)": (BC.w8b_matmul, "mxu8_launches"),
-            "K10d dma_gather": (DG.dma_gather, "launches")}
+            "K10d dma_gather": (DG.dma_gather, "launches"),
+            "K10e xread_matmul(stack)": (MP.xread_matmul, "launches"),
+            "K10e xread_matmul(dslice)": (MP.xread_matmul, "dslice_launches"),
+            "K10e tiny": (MP.tiny, "launches"),
+            "K10e nibble_matmul": (MP.nibble_matmul, "launches"),
+            "K10e rowrw": (MP.rowrw, "launches"),
+            "K10f reshape_copy": (RP.reshape_copy, "launches"),
+            "K10f st_product": (RP.st_product, "launches")}
 
 
 def launch_counts() -> dict:
@@ -474,6 +540,61 @@ def int_mm_library(xq, rs, w8, scale, out_dtype):
         return (acc.float() * scale[None, :] * rs[:, None]).to(out_dtype)
 
     return call, rows
+
+
+def _library_checked(name, call, ref):
+    """``call`` if this torch has a CUDA kernel for it and its result is
+    within LIBRARY_BOUND of ``ref`` (the library's own scale rounding), else
+    None, printing why."""
+    try:
+        out = call()
+    except (RuntimeError, NotImplementedError) as e:
+        reason = str(e).splitlines()[0][:120] if str(e) else type(e).__name__
+        say("2 kernel-vs-plain", library=name, none=reason.replace(" ", "_"))
+        return None
+    err = rel_l2(out, ref)
+    check(err <= LIBRARY_BOUND, f"library {name}: rel_l2 {err:.3e} to the dequantized "
+                                f"product > {LIBRARY_BOUND:.0e} (a wrong operand layout)")
+    return call
+
+
+def weight_int8pack_library(x, w_q, scale):
+    """One ``torch._weight_int8pack_mm`` (W8A16, per-channel scales; the
+    yardstick of the W8A16 kernels K10a, K10b's w8p, K10c's bf16 mode and
+    K10e's bf16 x-read, timed only): bf16 x times the (N, K) int8 weight,
+    the scales in bf16. None where it has no CUDA kernel."""
+    import torch
+
+    xb, wt, sc = x.to(torch.bfloat16), w_q.t().contiguous(), scale.to(torch.bfloat16)
+    return _library_checked("_weight_int8pack_mm", lambda: torch._weight_int8pack_mm(xb, wt, sc),
+                            xb.float() @ (w_q.float() * scale[None, :]))
+
+
+def weight_int4pack_library(x, w4, scale, group: int = 256):
+    """One ``torch._weight_int4pack_mm`` (W4A16 in tinygemm's layout; the
+    yardstick of K10b's w4p and K10e's nibble product, timed only): bf16 x
+    times int4 values w4 (K, N) in [-8, 7], stored as q = w4 + 8, two a byte
+    (even k high), repacked by ``_convert_weight_to_int4pack``; tinygemm's
+    (q - 8) * scale + zero with the per-channel scale repeated over K /
+    ``group`` groups and zero 0. None where it has no CUDA kernel."""
+    import torch
+
+    k, n = w4.shape
+    qt = (w4.to(torch.int32) + 8).t().contiguous()
+    try:
+        packed = torch._convert_weight_to_int4pack((qt[:, ::2] << 4 | qt[:, 1::2]).to(
+            torch.uint8), 8)
+    except (RuntimeError, NotImplementedError) as e:
+        say("2 kernel-vs-plain", library="_convert_weight_to_int4pack",
+            none=str(e).splitlines()[0][:120].replace(" ", "_"))
+        return None
+    sz = torch.stack([scale[None, :].expand(k // group, n), torch.zeros(k // group, n,
+                                                                       device=x.device)], -1)
+    sz = sz.to(torch.bfloat16).contiguous()
+    xb = x.to(torch.bfloat16)
+    return _library_checked("_weight_int4pack_mm",
+                            lambda: torch._weight_int4pack_mm(xb, packed, group, sz),
+                            xb.float() @ (w4.float() * scale[None, :]))
 
 
 def k5_names(widths) -> tuple[str, str]:
@@ -780,6 +901,7 @@ def kernel_cases(dev):
         cases.extend(_k5_cases(dev, g8, wbits, kvbits, with_pf=False, on_path=False))
     cases.extend(_perf_cases(dev))
     cases.extend(_tail_gather_cases(dev))
+    cases.extend(_probe_cases(dev))
     return cases
 
 
@@ -814,25 +936,27 @@ def _perf_cases(dev):
             lambda w_q=w_q, s=scale: Q.int8_matmul(x, w_q, s),
             lambda w_q=w_q, s=scale: Q.int8_matmul_plain(x, w_q, s), 1e-3, 20, True,
             nbytes, {"int8": 2.0 * m * kdim * n}, library=library, exact=True))
+        int8pack = weight_int8pack_library(x, w_q, scale)
         cases.append(Case(
             "K10a w8a16_matmul", f"w8a16 M={m} K={kdim} N={n}",
             lambda w_q=w_q, s=scale: W.w8a16_matmul(x, w_q, s),
             lambda w_q=w_q, s=scale: W.w8a16_matmul_plain(x, w_q, s), 1e-3, 20, True,
-            nbytes, {"bf16": 2.0 * m * kdim * n}))
+            nbytes, {"bf16": 2.0 * m * kdim * n}, library=int8pack))
         if n != 11264:
             continue
         w4, s4 = P.quantize_int4_channels(
             torch.randn(1, kdim, n, generator=g, device=dev) * 0.02)
-        for name, parts, bits, w_p, sc in (
-                ("w8p", 4, 8, P.pack4_int8(w_q), scale),
-                ("w4p", 8, 4, P.pack8_int4(w4[0]), s4[0])):
+        for name, parts, bits, w_p, sc, library in (
+                ("w8p", 4, 8, P.pack4_int8(w_q), scale, int8pack),
+                ("w4p", 8, 4, P.pack8_int4(w4[0]), s4[0],
+                 weight_int4pack_library(x, w4[0], s4[0]))):
             kw = dict(parts=parts, bits=bits)
             cases.append(Case(
                 "K10b wp_matmul", f"{name} M={m} K={kdim} N={n}",
                 lambda w_p=w_p, sc=sc, kw=kw: P.wp_matmul(x, w_p, sc, **kw),
                 lambda w_p=w_p, sc=sc, kw=kw: P.wp_matmul_plain(x, w_p, sc, **kw),
                 1e-3, 20, True, m * kdim * 2 + kdim * n * bits // 8 + n * 4 + m * n * 2,
-                {"bf16": 2.0 * m * kdim * n}))
+                {"bf16": 2.0 * m * kdim * n}, library=library))
 
     B, H, T, D = 14, 32, 1024, 128
     k8, v8 = (torch.randint(-127, 128, (B, H, T, D), generator=g, device=dev,
@@ -962,7 +1086,8 @@ def _tail_gather_cases(dev):
     cases.append(Case(
         "K10c w8b_matmul(bf16)", f"bf16 M={m} K={kdim} N={n}",
         lambda: BC.w8b_matmul(x, w_p, scale), lambda: BC.w8b_matmul_plain(x, w_p, scale),
-        1e-3, 20, True, nbytes, {"bf16": 2.0 * m * kdim * n}, extra=one_bf16_step))
+        1e-3, 20, True, nbytes, {"bf16": 2.0 * m * kdim * n},
+        library=weight_int8pack_library(x, w_q, scale), extra=one_bf16_step))
 
     idx, fmap = DG.make_inputs(1 << 18, dev)
     nw = idx.shape[0]
@@ -971,6 +1096,109 @@ def _tail_gather_cases(dev):
         lambda: DG.dma_gather(idx, fmap), lambda: DG.dma_gather_plain(idx, fmap), 0.0, 20,
         True, nw * 2 * 4 + fmap.numel() * 2 + nw * 2 * 16 * DG.C * 2, {},
         library=lambda: DG.torch_windows(idx, fmap), exact=True))
+    return cases
+
+
+def _probe_cases(dev):
+    """K10e and K10f at ``bench_megakernel_probe``'s and
+    ``probe_mosaic_reshape``'s shapes (phase 12's path), on seeded inputs
+    from a generator of their own: the x-read product at M 24 x 4096 x
+    11264 on int8 x (bit for bit, both x layouts; ``torch._int_mm`` with the
+    rescale as the library call) and bf16 x (off the path; within one bf16
+    step; ``torch._weight_int8pack_mm``); the tiny kernel on (16, 256) bf16
+    (bit for bit; the eager ``x * 1.0`` is the library call); the nibble
+    product at the same shape (one bf16 step; ``torch._weight_int4pack_mm``);
+    the row probe over 48 (16 x 128, 1024) key blocks, static and dynamic
+    (the full acc within PROBE_BOUND, the output rows within one bf16 step);
+    K10f's copies (bit for bit; ``.clone()``) and products (PROBE_BOUND;
+    ``torch.matmul``, none for e, whose S^T no one call builds)."""
+    import torch
+
+    _, Q, _, _ = kernel_modules()
+    MP, RP = probe_modules()
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    cases = []
+    m, kdim, n, ck = MP.M, MP.K, MP.N, MP.CK
+    w_q = torch.randint(-127, 128, (kdim, n), generator=g, device=dev, dtype=torch.int8)
+    w_p = Q.pack_int8_rows(w_q)
+    scale = torch.rand(n, generator=g, device=dev) * 0.02 + 0.005
+    x = torch.randn(m, kdim, generator=g, device=dev).to(bf)
+    for x8 in (True, False):
+        mpad = MP.xread_mpad(m, x8)
+        xr = torch.zeros(mpad, kdim, dtype=torch.int8 if x8 else bf, device=dev)
+        xr[:m] = torch.clamp(torch.round(x.float() * 4.0), -127, 127).to(torch.int8) if x8 else x
+        if x8:
+            library = int_mm_library(xr, torch.ones(mpad, device=dev), w_q, scale, bf)[0]
+        else:
+            library = weight_int8pack_library(xr, w_q, scale)
+        for layout, xx in (("stack", MP.tile_stack(xr, ck)), ("dslice", xr)):
+            cases.append(Case(
+                f"K10e xread_matmul({layout})",
+                f"{'int8' if x8 else 'bf16'} M={m} mpad={mpad} K={kdim} N={n}",
+                lambda xx=xx: MP.xread_matmul(xx, w_p, scale),
+                lambda xx=xx: MP.xread_matmul_plain(xx, w_p, scale), 1e-3, 20, x8,
+                xr.numel() * xr.element_size() + kdim * n + n * 4 + mpad * n * 2,
+                {"int8" if x8 else "bf16": 2.0 * mpad * kdim * n}, library=library,
+                extra=None if x8 else one_bf16_step, exact=x8))
+
+    xs = torch.randn(16, 256, generator=g, device=dev).to(bf)
+    cases.append(Case(
+        "K10e tiny", "(16,256) bf16", lambda: MP.tiny(xs), lambda: MP.tiny_plain(xs), 0.0, 20,
+        True, 2 * xs.numel() * 2, {}, library=lambda: xs * MP.TINY_BF16, exact=True))
+
+    w4 = torch.randint(-8, 8, (kdim, n), generator=g, device=dev, dtype=torch.int8)
+    w_p4 = MP.pack_nibble_words(w4)
+    mpad = MP.xread_mpad(m, False)
+    xi = MP.deinterleave_chunks(x, ck, mpad)
+    xr = torch.zeros(mpad, kdim, dtype=bf, device=dev)
+    xr[:m] = x
+    cases.append(Case(
+        "K10e nibble_matmul", f"w4a16 M={m} mpad={mpad} K={kdim} N={n}",
+        lambda: MP.nibble_matmul(xi, w_p4, scale), lambda: MP.nibble_matmul_plain(xi, w_p4, scale),
+        1e-3, 20, True, xi.numel() * 2 + kdim * n // 2 + n * 4 + mpad * n * 2,
+        {"bf16": 2.0 * mpad * kdim * n}, library=weight_int4pack_library(xr, w4, scale),
+        extra=one_bf16_step))
+
+    b, hgn, heads, t = MP.ROWRW
+    q = torch.randn(hgn, b, heads * 128, generator=g, device=dev).to(bf)
+    kp = torch.randint(-2 ** 30, 2 ** 30, (hgn * b, heads, 32, t), generator=g, device=dev,
+                       dtype=torch.int32)
+    for dyn in (False, True):
+        def rows_step(out, ref):
+            return one_bf16_step(out[1], ref[1])
+
+        cases.append(Case(
+            "K10e rowrw", f"{'dyn' if dyn else 'static'} S={hgn * b} heads={heads} T={t}",
+            lambda dyn=dyn: MP.rowrw(q, kp, dyn=dyn)[::-1],
+            lambda dyn=dyn: MP.rowrw_plain(q, kp, dyn=dyn)[::-1], PROBE_BOUND, 20, True,
+            q.numel() * 2 + kp.numel() * 4 + hgn * b * (heads * 128 + t) * 4,
+            {"cuda_core": 2.0 * hgn * b * heads * 128 * t}, extra=rows_step))
+
+    ones = dict(device=dev, dtype=torch.float32)
+    tq, wh, ww, d, kk = RP.TQ, RP.WH, RP.WW, RP.D, RP.K
+    s3, win = (torch.randn(tq, wh, ww, generator=g, **ones),
+               torch.randn(wh, ww, d, generator=g, **ones))
+    st = torch.randn(kk, tq, generator=g, **ones)
+    for name, src, shape in (("a (TQ,WH,WW)->(TQ,K)", s3, (tq, kk)),
+                             ("b (WH,WW,D)->(K,D)", win, (kk, d))):
+        cases.append(Case(
+            "K10f reshape_copy", name, lambda src=src, shape=shape: RP.reshape_copy(src, shape),
+            lambda src=src, shape=shape: src.reshape(shape).clone(), 0.0, 20, True,
+            2 * src.numel() * 4, {}, library=lambda src=src: src.clone(), exact=True))
+    flops = {"cuda_core": 2.0 * tq * kk * d}
+    for name, a, bb, mode, library in (
+            ("c S^T (K,TQ) x (K,D)", st, win.reshape(kk, d), "transposed",
+             lambda: torch.matmul(st.t(), win.reshape(kk, d))),
+            ("d (TQ,WH,WW) x (WH,WW,D)", s3, win, "contracted",
+             lambda: torch.matmul(s3.reshape(tq, kk), win.reshape(kk, d))),
+            ("e one-hot S^T x (WH,WW,D)", None, win, "onehot", None)):
+        nbytes = (0 if a is None else a.numel() * 4) + (kk * d + tq * d) * 4
+        cases.append(Case(
+            "K10f st_product", name,
+            lambda a=a, bb=bb, mode=mode: RP.st_product(a, bb, mode=mode),
+            lambda a=a, bb=bb, mode=mode: RP.st_product_plain(a, bb, mode=mode), PROBE_BOUND,
+            20, True, nbytes, flops, library=library))
     return cases
 
 
@@ -1108,7 +1336,7 @@ def phase_kernels(dev, summary: dict) -> None:
             entry["bound_ms"] += bound_ms
             entry["bound_by"][bound_by] += bound_ms  # which limit binds the most time
             if lib_ms is not None:
-                entry["library_ms"] += lib_ms
+                entry["library_ms"] = (entry["library_ms"] or 0.0) + lib_ms
         torch.cuda.empty_cache()
 
 
@@ -1930,8 +2158,9 @@ def phase_perf_tools(dev) -> dict:
     import torch
 
     from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_decode_parts, bench_dma_gather,
-                                           bench_fused_mlp, bench_packed, bench_stream,
-                                           bench_w8a16)
+                                           bench_fused_mlp, bench_megakernel_probe,
+                                           bench_packed, bench_stream, bench_w8a16,
+                                           probe_mosaic_reshape)
 
     reset_launch_counts()
     for name, main in (("bench_stream", bench_stream.main),
@@ -1943,7 +2172,11 @@ def phase_perf_tools(dev) -> dict:
                         functools.partial(bench_decode_parts.main, part="attn")),
                        ("bench_bitcast", bench_bitcast.main),
                        ("bench_dma_gather", bench_dma_gather.main),
-                       ("bench_fused_mlp", bench_fused_mlp.main)):
+                       ("bench_fused_mlp", bench_fused_mlp.main),
+                       *((f"bench_megakernel_probe:{part}",
+                          functools.partial(bench_megakernel_probe.main, part=part))
+                         for part in bench_megakernel_probe.PARTS),
+                       ("probe_mosaic_reshape", probe_mosaic_reshape.main)):
         t = time.perf_counter()
         try:
             result = main()
@@ -1955,10 +2188,13 @@ def phase_perf_tools(dev) -> dict:
                if ms is not None},
             **{"spot_" + "_".join(c.split()[:2]): f"{e:.3e}" for c, e in result["spot"].items()})
         check(None not in result["ms"].values(), f"{name}: a line was not timed")
+        if "sums" in result:  # the layout probe's all-ones sums, the JAX script's
+            sums = tuple(result["sums"].values())
+            check(sums == RESHAPE_SUMS, f"{name}: out_sums {sums} != {RESHAPE_SUMS}")
         gc.collect()
         torch.cuda.empty_cache()
     counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["perf"]}
-    say("12 perf-tools", step="launches", **{k.split()[0]: v for k, v in counts.items()})
+    say("12 perf-tools", step="launches", **{k.replace(" ", "_"): v for k, v in counts.items()})
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched by the perf tools")
     return counts

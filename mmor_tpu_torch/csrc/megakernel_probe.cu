@@ -1,0 +1,490 @@
+// K10e: the kernels of the megakernel design probes
+// (tools/perf/bench_megakernel_probe.py): the x-read product (W8A8 or W8A16
+// on K2's packed words, x held in shared memory or read from L2), the tiny
+// identity kernel of the launch-overhead probe, the int4 nibble product
+// (W4A16) and the row read/write probe (a decode-attention matvec over a KV
+// block, one output row written at a dynamic index).
+//
+// Replaces tools/perf/bench_megakernel_probe.py: _kern_stack (once_b, the
+// pl.pallas_call at :146), _kern_dslice (once_c, :168), _kern_tiny (call,
+// :199), _kern_nib (nibble_part's once, :288) and _kern_rowrw (rowrw_part's
+// once, :359).
+//
+// What bounds them on the H100: device-memory bytes. The x-read and nibble
+// products stream 46.1 and 23.1 MB of weights for 32 rows (a few
+// multiply-adds a byte), the row probe 100.7 MB of keys for one query row a
+// block; the tiny kernel moves 16 KB and measures a launch's fixed cost.
+//
+// Probe product (x-read b and c, nibble): out = (sum over K-tiles of each
+// tile's product as f32) * scale, in bf16, the TPU kernels' numerics: an
+// int8 tile's exact int32 sum cast to f32 (mma.sync.m16n8k32.s8), a bf16
+// tile's taken in f32 (mma.sync.m16n8k16 bf16), the tiles added in order.
+// A block of eight warps owns 32 rows (two m-tiles) and works on units of
+// 32 columns: lane group g owns columns 4g..4g+3 of a unit, one in each
+// 8-column mma tile, so one 16-byte load fetches a thread's weight words of
+// a word row (weight_words.cuh); the warps split each tile's k-steps, four
+// steps of loads in flight before their products, and meet in shared
+// memory once a tile, where each thread folds four outputs' warp sums (int
+// or f32, warp order) into their f32 tile sums. The mma does not care which
+// real k its slots hold as long as A and B agree, so each thread's A
+// registers take the x of the k its B words hold: one 8-byte load a row.
+// Where x comes from (XSrc):
+//  - kSmem (x-read b, the TPU's VMEM-resident tile stack): x is the
+//    (n_k, mpad, CK) stack; the grid is as many blocks as fit on the card,
+//    each walking its units with the tile loop outermost, so a block copies
+//    each K-tile of its 32 rows into shared memory once (64 KB at int8, 128
+//    KB at bf16: bf16's whole 256 KB x would not fit a block's 227 KB, a
+//    tile does) and keeps its units' f32 sums in shared memory;
+//  - kGlobal2D (x-read c): x is the (mpad, K) array; a block a unit, each
+//    warp loading its A fragments from device memory (L2) at every k-step;
+//  - kDeint (nibble): x is the (n_k, mpad, CK) stack with each chunk's
+//    columns [even rows | odd rows], read as kGlobal2D reads.
+// The nibble words are tools/perf/bench_megakernel_probe.py's
+// pack_int4_rows: nibble i of word r is row 8r + i, signed. A word's even
+// nibbles meet the chunk's even half and its odd nibbles the odd half, one
+// k16 step each, the TPU kernel's xe . lo + xo . hi.
+//
+// Row probe: grid (S programs, T / 128); a block's 8 warps split the G
+// heads and its 32 lanes four columns each (one 16-byte load of a key word
+// row); key bytes convert to f32 exactly by a byte permute into 2^23 + b
+// (no int-to-float conversion instruction); a head's dot is summed in f32
+// over its 128 rows, the heads added in f32. Every block writes its
+// columns of the full (S, T) acc; block (s, 0) writes the output row.
+// The TPU grid runs in order, so in static mode every program's write of
+// row [0, 0] leaves the last program's; here block (S - 1, 0) writes it on
+// purpose, and blocks (s, 0), s > 0, write row s as zeros, the port's
+// definition of the rows the TPU left undefined.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bf16_mma.cuh"
+#include "w4a8.cuh"  // mma_s8
+#include "weight_words.cuh"
+
+namespace {
+
+enum class Fmt { kS8, kBf16, kNib };  // int8 words x int8 x, int8 words x bf16 x, nibbles x bf16 x
+enum class XSrc { kSmem, kGlobal2D, kDeint };
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 32;  // rows a block
+constexpr int kCols = 32;  // columns a unit
+constexpr int kUnroll = 4;
+constexpr int kStage = 8;  // 16-byte loads a thread has in flight while staging x
+constexpr int kPadBytes = 32;  // a staged x row's padding: conflict-free 8-byte loads
+constexpr int kRedStride = kCols + 1;  // a warp-partial row: conflict-free stores
+constexpr size_t kRedBytes = (size_t)kWarps * kRows * kRedStride * 4;
+constexpr size_t kUnitBytes = (size_t)kRows * kCols * 4;
+
+struct ProbeArgs {
+  const unsigned char* x;
+  const void* w;
+  const float* scale;
+  __nv_bfloat16* out;
+  int mpad, k, n, ck, units, upb;
+};
+
+template <Fmt F> struct FmtTraits;
+template <> struct FmtTraits<Fmt::kS8> {  // 8 word rows (32 k) a step, two a thread
+  using Acc = int;
+  static constexpr int kEsz = 1, kKStep = 32;
+};
+template <> struct FmtTraits<Fmt::kBf16> {  // 4 word rows (16 k) a step, one a thread
+  using Acc = float;
+  static constexpr int kEsz = 2, kKStep = 16;
+};
+template <> struct FmtTraits<Fmt::kNib> {  // 4 nibble word rows (32 k) a step, two mma steps
+  using Acc = float;
+  static constexpr int kEsz = 2, kKStep = 32;
+};
+
+// a step's operands of one thread: weight words of its four columns, and
+// x of its 4 rows (m-tile mt, half h: rows 16mt + g + 8h) for each mma
+template <Fmt F> struct Frag {
+  uint4 w[F == Fmt::kS8 ? 2 : 1];
+  uint2 x[F == Fmt::kNib ? 2 : 1][2][2];  // [mma step][mt][h]
+};
+
+__device__ __forceinline__ uint2 load8(const unsigned char* p, bool live) {
+  return live ? *reinterpret_cast<const uint2*>(p) : make_uint2(0u, 0u);
+}
+
+// the address of x element (row, tile kk, tile-local k lk) for each source
+// (row is the block-local row for kSmem, the global row otherwise)
+template <Fmt F, XSrc X>
+__device__ __forceinline__ const unsigned char* x_at(const ProbeArgs& p,
+                                                     const unsigned char* xs, int row, int kk,
+                                                     int lk) {
+  constexpr int esz = FmtTraits<F>::kEsz;
+  if constexpr (X == XSrc::kSmem) {
+    return xs + (size_t)row * (p.ck * esz + kPadBytes) + (size_t)lk * esz;
+  } else if constexpr (X == XSrc::kGlobal2D) {
+    return p.x + ((size_t)row * p.k + (size_t)kk * p.ck + lk) * esz;
+  } else {
+    return p.x + (((size_t)kk * p.mpad + row) * p.ck + lk) * esz;
+  }
+}
+
+template <Fmt F, XSrc X>
+__device__ __forceinline__ void load_step(Frag<F>& f, const ProbeArgs& p,
+                                          const unsigned char* xs, int kk, int s, int col0,
+                                          int r0, int g, int t4) {
+  // x rows of the thread: global (kGlobal2D, kDeint) or block-local (kSmem)
+  int rows[2][2];
+  bool live[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int local = 16 * mt + g + 8 * h;
+      rows[mt][h] = X == XSrc::kSmem ? local : r0 + local;
+      live[mt][h] = X == XSrc::kSmem || r0 + local < p.mpad;
+    }
+  if constexpr (F == Fmt::kS8) {
+    // word rows wr, wr + 1: tile-local k 32s + 8t4 .. + 7
+    const int wr = (kk * p.ck + 32 * s) / 4 + 2 * t4;
+    f.w[0] = w_words4<WLayout::kWords>(p.w, wr, col0, p.n);
+    f.w[1] = w_words4<WLayout::kWords>(p.w, wr + 1, col0, p.n);
+    const int lk = 32 * s + 8 * t4;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f.x[0][mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, lk), live[mt][h]);
+  } else if constexpr (F == Fmt::kBf16) {
+    // word row wr: tile-local k 16s + 4t4 .. + 3
+    const int wr = (kk * p.ck + 16 * s) / 4 + t4;
+    f.w[0] = w_words4<WLayout::kWords>(p.w, wr, col0, p.n);
+    const int lk = 16 * s + 4 * t4;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f.x[0][mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, lk), live[mt][h]);
+  } else {
+    // nibble word row wr: tile-local k l0 .. l0 + 7; even ones at l0 / 2 of
+    // the chunk's first half, odd ones at l0 / 2 of its second half
+    const int wr = (kk * p.ck + 32 * s) / 8 + t4;
+    f.w[0] = w_words4<WLayout::kWords>(p.w, wr, col0, p.n);
+    const int l0 = 32 * s + 8 * t4;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          f.x[j][mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, j * (p.ck / 2) + l0 / 2),
+                                live[mt][h]);
+  }
+}
+
+__device__ __forceinline__ int s8_byte(uint32_t w, int i) { return (int)(int8_t)(w >> (8 * i)); }
+__device__ __forceinline__ int nibble(uint32_t w, int i) {
+  return (int)(w << (28 - 4 * i)) >> 28;
+}
+
+template <Fmt F>
+__device__ __forceinline__ void mma_step(typename FmtTraits<F>::Acc (&acc)[2][4][4],
+                                         const Frag<F>& f) {
+  const uint32_t w0[4] = {f.w[0].x, f.w[0].y, f.w[0].z, f.w[0].w};
+  if constexpr (F == Fmt::kS8) {
+    const uint32_t w1[4] = {f.w[1].x, f.w[1].y, f.w[1].z, f.w[1].w};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      // a0, a2: row g (k 8t4.., 8t4+4..); a1, a3: row g + 8
+      const uint32_t a[4] = {f.x[0][mt][0].x, f.x[0][mt][1].x, f.x[0][mt][0].y,
+                             f.x[0][mt][1].y};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t b[2] = {w0[nt], w1[nt]};
+        w4a8::mma_s8(acc[mt][nt], a, b);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (F == Fmt::kNib ? 2 : 1); ++j) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t w = w0[nt];
+        if constexpr (F == Fmt::kBf16) {  // values 0..3: k 4t4 .. 4t4 + 3
+          b[nt][0] = pair(bf16_bits(s8_byte(w, 0)), bf16_bits(s8_byte(w, 1)));
+          b[nt][1] = pair(bf16_bits(s8_byte(w, 2)), bf16_bits(s8_byte(w, 3)));
+        } else {  // nibbles j, j + 2 | j + 4, j + 6
+          b[nt][0] = pair(bf16_bits(nibble(w, j)), bf16_bits(nibble(w, j + 2)));
+          b[nt][1] = pair(bf16_bits(nibble(w, j + 4)), bf16_bits(nibble(w, j + 6)));
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t a[4] = {f.x[j][mt][0].x, f.x[j][mt][1].x, f.x[j][mt][0].y,
+                               f.x[j][mt][1].y};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+      }
+    }
+  }
+}
+
+// grid (blocks, ceil(mpad / 32)); dynamic shared memory: [the staged x tile
+// (kSmem)] [warp partials 8 x 32 x 33] [f32 sums, upb units x 32 x 32]
+template <Fmt F, XSrc X>
+__global__ void __launch_bounds__(kThreads) probe_kernel(ProbeArgs p) {
+  using Acc = typename FmtTraits<F>::Acc;
+  constexpr int esz = FmtTraits<F>::kEsz;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t xs_bytes = X == XSrc::kSmem ? (size_t)kRows * (p.ck * esz + kPadBytes) : 0;
+  const unsigned char* xs = smem;
+  Acc* red = reinterpret_cast<Acc*>(smem + xs_bytes);
+  float* sums = reinterpret_cast<float*>(smem + xs_bytes + kRedBytes);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = blockIdx.y * kRows;
+  const int n_k = p.k / p.ck, steps = p.ck / FmtTraits<F>::kKStep;
+  for (int i = threadIdx.x; i < p.upb * kRows * kCols; i += kThreads) sums[i] = 0.f;
+
+  for (int kk = 0; kk < n_k; ++kk) {
+    if constexpr (X == XSrc::kSmem) {  // this tile of the block's rows, once
+      __syncthreads();
+      const int chunks = p.ck * esz / 16, total = kRows * chunks;
+      for (int i0 = threadIdx.x; i0 < total; i0 += kStage * kThreads) {
+        uint4 v[kStage];  // a thread's loads in flight together
+#pragma unroll
+        for (int u = 0; u < kStage; ++u) {
+          const int i = i0 + u * kThreads, r = i / chunks;
+          v[u] = i < total && r0 + r < p.mpad
+                     ? reinterpret_cast<const uint4*>(
+                           p.x + ((size_t)kk * p.mpad + r0 + r) * p.ck * esz)[i % chunks]
+                     : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < kStage; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < total)
+            *reinterpret_cast<uint4*>(smem + (size_t)(i / chunks) * (p.ck * esz + kPadBytes) +
+                                      16 * (i % chunks)) = v[u];
+        }
+      }
+      __syncthreads();
+    }
+    for (int ui = 0; ui < p.upb; ++ui) {
+      const int unit = blockIdx.x + ui * gridDim.x;
+      if (unit >= p.units) break;
+      const int col0 = unit * kCols + 4 * g;
+      Acc acc[2][4][4] = {};
+      for (int s0 = warp * kUnroll; s0 < steps; s0 += kWarps * kUnroll) {
+        Frag<F> f[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (s0 + u < steps) {
+            load_step<F, X>(f[u], p, xs, kk, s0 + u, col0, r0, g, t4);
+          } else {
+            f[u] = Frag<F>{};
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) mma_step<F>(acc, f[u]);
+      }
+      // accumulator e of tile (mt, nt): row 16mt + g + 8(e / 2), unit
+      // column 4(2t4 + e % 2) + nt
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[(warp * kRows + 16 * mt + g + 8 * (e >> 1)) * kRedStride +
+                4 * (2 * t4 + (e & 1)) + nt] = acc[mt][nt][e];
+      __syncthreads();
+      for (int o = threadIdx.x; o < kRows * kCols; o += kThreads) {
+        Acc tile = 0;
+        for (int wi = 0; wi < kWarps; ++wi)
+          tile += red[(wi * kRows + o / kCols) * kRedStride + o % kCols];
+        sums[ui * kRows * kCols + o] += (float)tile;
+      }
+      __syncthreads();
+    }
+  }
+  for (int ui = 0; ui < p.upb; ++ui) {
+    const int unit = blockIdx.x + ui * gridDim.x;
+    if (unit >= p.units) break;
+    for (int o = threadIdx.x; o < kRows * kCols; o += kThreads) {
+      const int row = r0 + o / kCols, col = unit * kCols + o % kCols;
+      if (row < p.mpad)
+        p.out[(size_t)row * p.n + col] =
+            __float2bfloat16_rn(sums[ui * kRows * kCols + o] * p.scale[col]);
+    }
+  }
+}
+
+template <Fmt F, XSrc X>
+int launch_probe(const void* x, const void* w, const void* scale, void* out, int mpad, int k,
+                 int n, int ck, void* stream) {
+  if (mpad < 1 || ck < 64 || ck % 64 || k % ck || n < kCols || n % kCols)
+    return (int)cudaErrorInvalidValue;
+  ProbeArgs p{static_cast<const unsigned char*>(x), w, static_cast<const float*>(scale),
+              static_cast<__nv_bfloat16*>(out), mpad, k, n, ck, n / kCols, 1};
+  int grid = p.units;
+  size_t smem = kRedBytes + kUnitBytes;
+  if constexpr (X == XSrc::kSmem) {
+    // as many blocks as fit on the card, each with its units' sums
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int upb_max = (p.units + sms - 1) / sms;
+    smem = (size_t)kRows * (ck * FmtTraits<F>::kEsz + kPadBytes) + kRedBytes +
+           upb_max * kUnitBytes;
+    e = cudaFuncSetAttribute(probe_kernel<F, X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_kernel<F, X>, kThreads,
+                                                        smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid = p.units < per_sm * sms ? p.units : per_sm * sms;
+    p.upb = (p.units + grid - 1) / grid;
+  }
+  probe_kernel<F, X><<<dim3(grid, (mpad + kRows - 1) / kRows), kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ tiny kernel
+__global__ void tiny_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, int n8) {
+  // the TPU kernel's weakly typed 1.0000001 becomes the bf16 1.0
+  const __nv_bfloat162 c = __float2bfloat162_rn(1.0000001f);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  uint4 v = x[i];
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __hmul2(h[j], c);
+  out[i] = v;
+}
+
+// ------------------------------------------------------------ row probe
+constexpr int kRowCols = 128;  // key columns a block
+
+// byte i of w ^ 0x80808080 (the byte plus 128) as the float 2^23 + byte,
+// minus 2^23 + 128: the signed byte, exactly
+__device__ __forceinline__ float key_byte(uint32_t biased, int i) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+}
+
+template <bool kDyn>
+__global__ void __launch_bounds__(kThreads)
+rowrw_kernel(const uint16_t* __restrict__ q, const uint4* __restrict__ kp, float* __restrict__ out,
+             float* __restrict__ acc, int ns, int heads, int t) {
+  extern __shared__ float qs[];  // the query row, heads * 128 f32
+  __shared__ float part[kWarps][kRowCols];
+  __shared__ float acc0;
+  const int s = blockIdx.x, t0 = blockIdx.y * kRowCols;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int width = heads * 128;
+  const uint16_t* qrow = q + (size_t)(kDyn ? s : 0) * width;
+  for (int i = threadIdx.x; i < width; i += kThreads)
+    qs[i] = __uint_as_float((uint32_t)qrow[i] << 16);
+  __syncthreads();
+
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+  const int words_row = t / 4;  // 16-byte chunks of a key word row
+  for (int hd = warp; hd < heads; hd += kWarps) {
+    const uint4* kw = kp + ((size_t)s * heads + hd) * 32 * words_row + t0 / 4 + lane;
+    const float* qh = qs + hd * 128;
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int r = 0; r < 32; ++r) {
+      const uint4 v = kw[(size_t)r * words_row];
+      const uint32_t cols[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                                v.w ^ 0x80808080u};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {  // key row 4r + b
+        const float qv = qh[4 * r + b];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dot[c] = fmaf(qv, key_byte(cols[c], b), dot[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sum[c] += dot[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) part[warp][4 * lane + c] = sum[c];
+  __syncthreads();
+  if (threadIdx.x < kRowCols) {
+    float a = 0.f;
+    for (int wi = 0; wi < kWarps; ++wi) a += part[wi][threadIdx.x];
+    acc[(size_t)s * t + t0 + threadIdx.x] = a;
+    if (threadIdx.x == 0) acc0 = a;
+  }
+  if (blockIdx.y != 0) return;
+  __syncthreads();
+  if (kDyn) {
+    for (int i = threadIdx.x; i < width; i += kThreads) out[(size_t)s * width + i] = acc0;
+  } else {
+    if (s == ns - 1)
+      for (int i = threadIdx.x; i < width; i += kThreads) out[i] = acc0;
+    if (s != 0)
+      for (int i = threadIdx.x; i < width; i += kThreads) out[(size_t)s * width + i] = 0.f;
+  }
+}
+
+}  // namespace
+
+// x-read probe: w (K/4, N) int32 pack_int8_rows words; scale (N,) f32; out
+// (mpad, N) bf16. x8 = 1: int8 x, W8A8; 0: bf16 x, W8A16. stack = 1: x the
+// (K/ck, mpad, ck) tile stack, copied into shared memory a tile at a time
+// (b); 0: x the (mpad, K) array, read from L2 (c). ck a multiple of 64
+// dividing K; N a multiple of 32.
+extern "C" int mmor_xread_probe(const void* x, const void* w, const void* scale, void* out,
+                                int mpad, int k, int n, int ck, int x8, int stack,
+                                void* stream) {
+  if (x8 && stack)
+    return launch_probe<Fmt::kS8, XSrc::kSmem>(x, w, scale, out, mpad, k, n, ck, stream);
+  if (x8) return launch_probe<Fmt::kS8, XSrc::kGlobal2D>(x, w, scale, out, mpad, k, n, ck, stream);
+  if (stack)
+    return launch_probe<Fmt::kBf16, XSrc::kSmem>(x, w, scale, out, mpad, k, n, ck, stream);
+  return launch_probe<Fmt::kBf16, XSrc::kGlobal2D>(x, w, scale, out, mpad, k, n, ck, stream);
+}
+
+// nibble probe: x (K/ck, mpad, ck) bf16, each chunk [even rows | odd rows];
+// w (K/8, N) int32, nibble i of word r = row 8r + i; scale (N,) f32; out
+// (mpad, N) bf16.
+extern "C" int mmor_nibble_probe(const void* x, const void* w, const void* scale, void* out,
+                                 int mpad, int k, int n, int ck, void* stream) {
+  return launch_probe<Fmt::kNib, XSrc::kDeint>(x, w, scale, out, mpad, k, n, ck, stream);
+}
+
+// tiny probe: out = x * bf16(1.0000001) over n bf16 values, n % 8 == 0.
+extern "C" int mmor_tiny_probe(const void* x, void* out, int n, void* stream) {
+  if (n < 0 || n % 8) return (int)cudaErrorInvalidValue;
+  const int n8 = n / 8;
+  if (n8 == 0) return 0;
+  tiny_kernel<<<(n8 + kThreads - 1) / kThreads, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out), n8);
+  return (int)cudaGetLastError();
+}
+
+// row probe: q (S, heads * 128) bf16 query rows (row s in dyn mode, row 0
+// in static mode); kp (S, heads, 32, T) int32, byte b of word row r = key
+// row 4r + b; out (S, heads * 128) f32; acc (S, T) f32. T % 128 == 0.
+extern "C" int mmor_rowrw_probe(const void* q, const void* kp, void* out, void* acc, int ns,
+                                int heads, int t, int dyn, void* stream) {
+  if (ns < 1 || heads < 1 || t < kRowCols || t % kRowCols) return (int)cudaErrorInvalidValue;
+  const dim3 grid(ns, t / kRowCols);
+  const size_t smem = (size_t)heads * 128 * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint16_t* qb = static_cast<const uint16_t*>(q);
+  const uint4* k4 = static_cast<const uint4*>(kp);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (dyn)
+    rowrw_kernel<true><<<grid, kThreads, smem, s>>>(qb, k4, static_cast<float*>(out),
+                                                     static_cast<float*>(acc), ns, heads, t);
+  else
+    rowrw_kernel<false><<<grid, kThreads, smem, s>>>(qb, k4, static_cast<float*>(out),
+                                                      static_cast<float*>(acc), ns, heads, t);
+  return (int)cudaGetLastError();
+}

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types; each returns a cudaError_t
 SIGNATURES = {
     "mmor_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
@@ -47,6 +48,12 @@ SIGNATURES = {
     "mmor_int8_matmul_w8b": (_P,) * 6 + (_I,) * 4 + (_P,),
     "mmor_fused_o_mlp": (_P,) * 15 + (_I,) * 5 + (_F, _P),
     "mmor_window_gather": (_P,) * 3 + (_I,) * 4 + (_P,),
+    "mmor_xread_probe": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "mmor_nibble_probe": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mmor_tiny_probe": (_P, _P, _I, _P),
+    "mmor_rowrw_probe": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mmor_probe_copy": (_P, _P, _L, _P),
+    "mmor_probe_product": (_P,) * 3 + (_I,) * 7 + (_F, _P),
 }
 
 

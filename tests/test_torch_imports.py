@@ -47,6 +47,8 @@ def test_port_imports_no_jax():
     assert "mmor_tpu_torch.cli.eval_panoptic" in modules
     assert "mmor_tpu_torch.ops.deformable_sampler" in modules
     assert "mmor_tpu_torch.ops.mega_overlap" in modules
+    assert "mmor_tpu_torch.tools.perf.bench_megakernel_probe" in modules
+    assert "mmor_tpu_torch.tools.perf.probe_mosaic_reshape" in modules
     _assert_imports_clean(modules)
 
 

@@ -12,8 +12,11 @@ width; K7's f32 and bf16 scales and a fully masked row, K8's
 ragged shapes at both of its kernels, K10a and K10b's ragged N and M above
 one 16-row tile; K9 at one row, at the 7B tail, above one 16-row tile and
 above 64 rows, with an f32 residual, and its refusals; K10c's two modes at
-ragged shapes; K10d's windows that reach outside the map. Every test needs a CUDA device
-and skips without one (the kernels have no CPU mode); run them on the card with
+ragged shapes; K10d's windows that reach outside the map; K10e's x-read at
+both x layouts and widths (two row groups, half a row group, a bf16 tile
+past shared memory refused), tiny, nibble and row kernels (both modes, one
+head, one 128-column block), K10f's copies and products at ragged shapes.
+Every test needs a CUDA device and skips without one (the kernels have no CPU mode); run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
 Tolerances: bf16 attention rel_l2 <= 2e-2 (the kernels round the softmax
@@ -30,7 +33,10 @@ differs) and max abs <= 1e-5 in f32, exact where a sample sits on a pixel
 centre with weight 1 or wholly off the map; K9 rel_l2 <= 1e-3 (the same
 bf16 operands and f32 products summed in another order; h and m round one
 bf16 step apart at near-ties) and bit-identical from call to call; K10c
-mxu8 bit-exact (K2's kernels, K8's rule), bf16 as K10b; K10d bit-exact.
+mxu8 bit-exact (K2's kernels, K8's rule), bf16 as K10b; K10d bit-exact;
+K10e x-read int8 and tiny bit-exact, x-read bf16 and nibble within one bf16
+step at the largest output, the row probe rel_l2 <= 1e-6; K10f copies
+bit-exact, products rel_l2 <= 1e-6.
 """
 
 import functools
@@ -47,8 +53,10 @@ from mmor_tpu_torch.ops import quantized_matmul as Q
 from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
 from mmor_tpu_torch.tools.perf import bench_bitcast as BC
 from mmor_tpu_torch.tools.perf import bench_dma_gather as DG
+from mmor_tpu_torch.tools.perf import bench_megakernel_probe as MP
 from mmor_tpu_torch.tools.perf import bench_packed as P
 from mmor_tpu_torch.tools.perf import bench_w8a16 as W
+from mmor_tpu_torch.tools.perf import probe_mosaic_reshape as RP
 from torch_threads import share_cores
 
 share_cores()  # parallel test workers oversubscribe the cores
@@ -626,3 +634,126 @@ def test_dma_gather_kernel(dev, hwc, n):
     assert out.shape == (n, 2, 16, c)
     assert torch.equal(out, ref)
     assert not out[:4].any() and out[4:6].all()
+
+
+def assert_one_bf16_step(out, ref):
+    """Every output within one bf16 step, at the largest output, of its plain
+    value (chip_smoke.py's rule): both round an f32 sum of the same exact
+    products, summed in another order, once, so an output that cancels to
+    near zero may sit a few of its own steps away."""
+    o, r = out.double(), ref.double()
+    step = torch.exp2(torch.floor(torch.log2(r.abs().max())) - 7)
+    assert float((o - r).abs().max()) <= float(step)
+
+
+@pytest.mark.parametrize("layout", ["stack", "dslice"])
+@pytest.mark.parametrize("x8,m,k,n,ck", [
+    (True, 24, 4096, 11264, 2048),   # bench_megakernel_probe's xread
+    (True, 40, 512, 96, 256),        # two row groups, the second partly padding
+    (False, 24, 4096, 11264, 2048),  # BM_MXU8=0: a 128 KB bf16 tile in shared memory
+    (False, 5, 1024, 64, 512),       # bf16 mpad 16: half a row group
+])
+def test_xread_probe_kernel(dev, layout, x8, m, k, n, ck):
+    """K10e x-read against its plain version: int8 x bit for bit, bf16 x
+    within one bf16 step at the largest output; each x layout counts its
+    own launches."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    w_p = Q.pack_int8_rows(torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                                         dtype=torch.int8))
+    scale = torch.rand(n, generator=g, device=dev) * 0.02 + 0.005
+    x = randn(g, m, k, dev=dev)
+    mpad = MP.xread_mpad(m, x8)
+    xr = torch.zeros(mpad, k, dtype=torch.int8 if x8 else torch.bfloat16, device=dev)
+    xr[:m] = torch.clamp(torch.round(x.float() * 4), -127, 127).to(torch.int8) if x8 else x
+    xx = MP.tile_stack(xr, ck) if layout == "stack" else xr
+    counter = "launches" if layout == "stack" else "dslice_launches"
+    before = getattr(MP.xread_matmul, counter)
+    out = MP.xread_matmul(xx, w_p, scale, ck=ck)
+    ref = MP.xread_matmul_plain(xx, w_p, scale, ck=ck)
+    torch.cuda.synchronize()
+    assert getattr(MP.xread_matmul, counter) == before + 1
+    assert out.shape == (mpad, n) and out.dtype == torch.bfloat16
+    if x8:
+        assert torch.equal(out, ref)
+    else:
+        assert_one_bf16_step(out, ref)
+
+
+def test_xread_probe_kernel_refuses_a_tile_past_shared_memory(dev):
+    """A staged bf16 K-tile of 32 x 4096 (256 KB) cannot fit a block."""
+    x = torch.zeros(2, 32, 4096, dtype=torch.bfloat16, device=dev)
+    w_p = torch.zeros(2048, 64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        MP.xread_matmul(x, w_p, torch.ones(64, device=dev), ck=4096)
+
+
+@pytest.mark.parametrize("shape", [(16, 256), (3, 8)])
+def test_tiny_probe_kernel(dev, shape):
+    """K10e's tiny kernel is an identity, bit for bit, as its plain version."""
+    x = randn(torch.Generator(device=dev).manual_seed(26), *shape, dev=dev)
+    out = MP.tiny(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, MP.tiny_plain(x)) and torch.equal(out, x)
+
+
+@pytest.mark.parametrize("m,k,n,ck", [(24, 4096, 11264, 2048), (5, 512, 64, 256)])
+def test_nibble_probe_kernel(dev, m, k, n, ck):
+    """K10e nibble product against its plain version: one bf16 step at the
+    largest output."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    w_p = MP.pack_nibble_words(torch.randint(-8, 8, (k, n), generator=g, device=dev,
+                                             dtype=torch.int8))
+    scale = torch.rand(n, generator=g, device=dev) * 0.02 + 0.005
+    xi = MP.deinterleave_chunks(randn(g, m, k, dev=dev), ck, MP.xread_mpad(m, False))
+    before = MP.nibble_matmul.launches
+    out = MP.nibble_matmul(xi, w_p, scale)
+    ref = MP.nibble_matmul_plain(xi, w_p, scale)
+    torch.cuda.synchronize()
+    assert MP.nibble_matmul.launches == before + 1
+    assert_one_bf16_step(out, ref)
+
+
+@pytest.mark.parametrize("dyn", [False, True], ids=["static", "dyn"])
+@pytest.mark.parametrize("b,hgn,heads,t", [(24, 2, 16, 1024), (3, 2, 2, 128), (1, 1, 1, 256)])
+def test_rowrw_probe_kernel(dev, dyn, b, hgn, heads, t):
+    """K10e row probe against its plain version: the full acc and the output
+    rows within rel_l2 1e-6 (f32 sums in another order); in static mode row
+    (0, 0) is the last program's and every other row zero."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    q = randn(g, hgn, b, heads * 128, dev=dev)
+    kp = torch.randint(-2 ** 31, 2 ** 31 - 1, (hgn * b, heads, 32, t), generator=g, device=dev,
+                       dtype=torch.int32)
+    before = MP.rowrw.launches
+    out, acc = MP.rowrw(q, kp, dyn=dyn)
+    ref_out, ref_acc = MP.rowrw_plain(q, kp, dyn=dyn)
+    torch.cuda.synchronize()
+    assert MP.rowrw.launches == before + 1
+    assert rel_l2(acc, ref_acc) <= 1e-6 and rel_l2(out, ref_out) <= 1e-6
+    rows = out.reshape(hgn * b, -1)
+    if dyn:
+        assert torch.equal(rows, acc[:, :1].expand_as(rows))
+    else:
+        assert bool((rows[0] == acc[-1, 0]).all()) and not rows[1:].any()
+
+
+@pytest.mark.parametrize("tq,wh,ww,d", [(256, 32, 40, 32), (40, 3, 7, 20)])
+def test_reshape_probe_kernels(dev, tq, wh, ww, d):
+    """K10f's copies bit for bit, its three products within rel_l2 1e-6 (f32
+    sums in another order), at probe_mosaic_reshape's shapes and ragged
+    ones."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    k = wh * ww
+    s3 = torch.randn(tq, wh, ww, generator=g, device=dev)
+    win = torch.randn(wh, ww, d, generator=g, device=dev)
+    st = torch.randn(k, tq, generator=g, device=dev)
+    copies, products = RP.reshape_copy.launches, RP.st_product.launches
+    assert torch.equal(RP.reshape_copy(s3, (tq, k)), s3.reshape(tq, k))
+    assert torch.equal(RP.reshape_copy(win, (k, d)), win.reshape(k, d))
+    onehot = (wh - 1, ww - 2, 0.5)
+    for mode, a, b in (("transposed", st, win.reshape(k, d)), ("contracted", s3, win),
+                       ("onehot", None, win)):
+        out = RP.st_product(a, b, mode=mode, tq=tq, onehot=onehot)
+        ref = RP.st_product_plain(a, b, mode=mode, tq=tq, onehot=onehot)
+        assert out.shape == (tq, d) and rel_l2(out, ref) <= 1e-6, mode
+    torch.cuda.synchronize()
+    assert RP.reshape_copy.launches == copies + 2 and RP.st_product.launches == products + 3

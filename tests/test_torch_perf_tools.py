@@ -1,5 +1,7 @@
 """The port's microbenchmark kernels (K7, K8, K10a-K10d) and their tools
-(``mmor_tpu_torch/tools/perf``) against the JAX package, on the CPU.
+(``mmor_tpu_torch/tools/perf``) against the JAX package, on the CPU (K10e
+and K10f: ``tests/test_torch_megakernel_probe.py``; their benches' mains run
+here with the others).
 
 The same seeded numpy inputs go through the JAX side and the port's plain
 versions (CPU tensors; the CUDA kernels are held to those on the card by
@@ -52,7 +54,8 @@ from mmor_tpu_torch.config import LlamaConfig
 from mmor_tpu_torch.ops import attention as tattn
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
 from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_decode_parts, bench_dma_gather,
-                                       bench_fused_mlp, bench_packed, bench_stream, bench_w8a16)
+                                       bench_fused_mlp, bench_megakernel_probe, bench_packed,
+                                       bench_stream, bench_w8a16, probe_mosaic_reshape)
 from tools.perf import bench_bitcast as jbitcast
 from tools.perf import bench_dma_gather as jdma
 from tools.perf import bench_packed as jpacked
@@ -381,6 +384,16 @@ BENCHES = {
     "bench_fused_mlp": (
         lambda: bench_fused_mlp.main("cpu", batches=(3, 17), cfg=LlamaConfig.tiny(), repeats=1),
         ("k9_fused B=3", "k2_chain B=3", "k10c_chain B=3", "torch_bf16 B=17")),
+    **{f"bench_megakernel_probe:{part}": (
+        lambda part=part: bench_megakernel_probe.main(
+            "cpu", part=part, m=5, k=512, n=64, ck=256, repeats=1, rowrw_shape=(3, 2, 2, 128)),
+        lines) for part, lines in (
+            ("xread", ("a_k2", "b_stack", "c_dslice")),
+            ("overhead", ("tiny8", "tiny32", "eager32", "graph32")),
+            ("nibble", ("nibble_w4a16", "k2_w8a16", "c_dslice_bf16")),
+            ("rowrw", ("rowrw_static", "rowrw_dyn")))},
+    "probe_mosaic_reshape": (lambda: probe_mosaic_reshape.main("cpu", repeats=1),
+                             ("a.", "b.", "c.", "d.", "e.")),
 }
 
 
@@ -401,6 +414,6 @@ def test_benches_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for main in (bench_stream.main, bench_bitcast.main, bench_dma_gather.main,
-                 bench_fused_mlp.main):
+                 bench_fused_mlp.main, bench_megakernel_probe.main, probe_mosaic_reshape.main):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             main()

@@ -11,8 +11,8 @@ Phases (each prints its lines; any failure exits non-zero):
 1. build: compiles K1-K9, K5's piggyback-prefill rows (K5-pf) and its int8
    widths (K5-int8), and the microbenchmark kernels K10a-K10f from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
-   stack frame and spills of each kernel compiled from ``mega_decode.cu``
-   and ``fused_mlp.cu``;
+   stack frame and spills of each kernel compiled from ``mega_decode.cu``,
+   ``fused_mlp.cu`` and ``flash_attention.cu``, and of K2's wgmma kernel;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -835,11 +835,14 @@ def kernel_cases(dev):
                 torch.randn(kdim, n, generator=g, device=dev) * 0.02)
             w_p = Q.pack_int8_rows(w_q)
             library, rows = int_mm_library(*Q.quantize_rows(x), w_q, scale, bf)
+            # the served lm_head runs on the last position only
+            # (models/llama.py's last_logit_only), so at M = 5664 the
+            # 32000-column case is a valid K2 shape on no path
             cases.append(Case(
                 "K2 int8_matmul_packed", f"w8a8 M={m} K={kdim} N={n} library_rows={rows}",
                 lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed(x, w_p, s),
                 lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s),
-                1e-3, 10 if m == 8 else 3, True,
+                1e-3, 10 if m == 8 else 3, m == 8 or n != 32000,
                 m * kdim * 2 + kdim * n + n * 4 + m * n * 2, {"int8": 2.0 * m * kdim * n},
                 library=library, exact=True))
     # W8A16 (quant_int8_mxu=False): not on a serving path
@@ -852,6 +855,7 @@ def kernel_cases(dev):
         lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s, int8_mxu=False),
         1e-3, 10, False, 8 * 4096 * 2 + 4096 * 4096 + 4096 * 4 + 8 * 4096 * 2,
         {"bf16": 2.0 * 8 * 4096 * 4096}))
+    cases.extend(_edge_cases(dev))
 
     # K3 at the int4 path's prefill rows (M=8x708) and at decode rows over
     # the fused projections: qkv, o, gate_up (ffn padded to 11264), down
@@ -902,6 +906,86 @@ def kernel_cases(dev):
     cases.extend(_perf_cases(dev))
     cases.extend(_tail_gather_cases(dev))
     cases.extend(_probe_cases(dev))
+    return cases
+
+
+def _edge_cases(dev):
+    """K1 and K2 off the serving shapes, where their tiles and masks have
+    edges (inputs from a generator of their own): K1 at each head dim with
+    unsorted segment ids on separate keys and Sq != Sk, causal with Sq < Sk,
+    and ragged lengths against the 64- and 128-row tiles with left padding;
+    rows whose segment no key carries (held to 0, the plain version's rows
+    zeroed to match); K2 bit for bit at M 17, 100 and 5667 with N 4100 and
+    K 4160 (a multiple of 64, not of the 128-deep k tile), at N % 4 != 0 and
+    with f32 x."""
+    import torch
+
+    A, Q, _, _ = kernel_modules()
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    cases = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def ids(b, s, hi):
+        return torch.randint(0, hi, (b, s), generator=g, device=dev, dtype=torch.int32)
+
+    for d in (16, 32, 64, 128):
+        for what, b, h, sq, sk, causal, seg, kv_seg in (
+                ("unsorted_kv_ids", 2, 3, 200, 333, False, ids(2, 200, 3), ids(2, 333, 3)),
+                ("causal_sq<sk", 2, 2, 100, 260, True, None, None),
+                ("ragged_leftpad_causal", 3, 2, 191, 191, True, None, None)):
+            if what.startswith("ragged"):
+                seg = torch.ones(b, sq, dtype=torch.int32, device=dev)
+                for r in range(b):
+                    seg[r, : 61 * r] = 0
+            q, k, v = randn(b, h, sq, d), randn(b, h, sk, d), randn(b, h, sk, d)
+            kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
+            mask = torch.ones(b, 1, sq, sk, dtype=torch.bool, device=dev)
+            if causal:
+                mask &= torch.ones(sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
+            if seg is not None:
+                kseg = seg if kv_seg is None else kv_seg
+                mask &= seg[:, None, :, None] == kseg[:, None, None, :]
+            cases.append(Case(
+                "K1 flash_attention", f"edge_{what}({b},{h},{sq},{sk},{d})",
+                lambda q=q, k=k, v=v, kw=kw: A.flash_attention(q, k, v, **kw),
+                lambda q=q, k=k, v=v, kw=kw: A.mha_reference(q, k, v, **kw), 2e-2, 3, False,
+                2 * b * h * (sq + 2 * sk) * d, {"bf16": 4.0 * float(mask.sum()) * h * d}))
+        # rows 150.. carry a segment no key has: the kernel stores 0 there
+        q, k, v = randn(1, 2, 300, d), randn(1, 2, 300, d), randn(1, 2, 300, d)
+        seg = torch.zeros(1, 300, dtype=torch.int32, device=dev)
+        seg[:, 150:] = 5
+        kw = dict(segment_ids=seg, kv_segment_ids=torch.zeros_like(seg))
+
+        def extra(out, ref):
+            zero = not bool(out[:, :, 150:].any())
+            check(zero, "K1: a row with no visible key is not 0")
+            return {"no_key_rows_zero": zero}
+
+        def plain(q=q, k=k, v=v, kw=kw):
+            ref = A.mha_reference(q, k, v, **kw)
+            ref[:, :, 150:] = 0
+            return ref
+
+        cases.append(Case(
+            "K1 flash_attention", f"edge_no_key_rows(1,2,300,300,{d})",
+            lambda q=q, k=k, v=v, kw=kw: A.flash_attention(q, k, v, **kw), plain, 2e-2, 3,
+            False, 2 * 2 * 900 * d, {"bf16": 4.0 * 150 * 300 * 2 * d}, extra=extra))
+
+    for m, kdim, n, dtype in ((17, 4160, 4100, bf), (100, 4160, 4100, bf),
+                              (5667, 4160, 4100, bf), (100, 256, 90, bf),
+                              (70, 128, 64, torch.float32)):
+        x = torch.randn(m, kdim, generator=g, device=dev).to(dtype)
+        w_q, scale = Q.quantize_weights(torch.randn(kdim, n, generator=g, device=dev) * 0.02)
+        w_p = Q.pack_int8_rows(w_q)
+        cases.append(Case(
+            "K2 int8_matmul_packed", f"edge w8a8 M={m} K={kdim} N={n} {str(dtype)[6:]}",
+            lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed(x, w_p, s),
+            lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s),
+            1e-3, 3, False, m * kdim * x.element_size() + kdim * n + n * 4
+            + m * n * x.element_size(), {"int8": 2.0 * m * kdim * n}, exact=True))
     return cases
 
 
@@ -1088,6 +1172,14 @@ def _tail_gather_cases(dev):
         lambda: BC.w8b_matmul(x, w_p, scale), lambda: BC.w8b_matmul_plain(x, w_p, scale),
         1e-3, 20, True, nbytes, {"bf16": 2.0 * m * kdim * n},
         library=weight_int8pack_library(x, w_q, scale), extra=one_bf16_step))
+    # mxu8 above one 16-row tile: K2's wgmma kernel with K8's activation rule
+    x100 = torch.randn(100, kdim, generator=g, device=dev).to(bf)
+    cases.append(Case(
+        "K10c w8b_matmul(mxu8)", f"mxu8 M=100 K={kdim} N={n}",
+        lambda: BC.w8b_matmul(x100, w_p, scale, mode="mxu8"),
+        lambda: BC.w8b_matmul_plain(x100, w_p, scale, mode="mxu8"), 1e-3, 5, False,
+        100 * kdim * 2 + kdim * n + n * 4 + 100 * n * 2, {"int8": 2.0 * 100 * kdim * n},
+        exact=True))
 
     idx, fmap = DG.make_inputs(1 << 18, dev)
     nw = idx.shape[0]
@@ -2206,7 +2298,7 @@ def _build_phase(build) -> None:
     build.library()
     say("1 build", seconds=f"{secs:.2f}", library=os.path.relpath(path, ROOT))
     log = os.path.join(os.path.dirname(path), "nvcc.log")
-    if os.path.exists(log):  # registers and spills of K5's and K9's kernels
+    if os.path.exists(log):  # registers and spills of K1's, K2's wgmma, K5's and K9's kernels
         for line in nvcc_report(open(log).read()):
             say("1 build", **line)
 
@@ -2214,9 +2306,12 @@ def _build_phase(build) -> None:
 def nvcc_report(log: str) -> list[dict]:
     """``-Xptxas -v``'s registers, stack frame and spills of each kernel
     compiled from ``mega_decode.cu`` (its four (WBITS, KVBITS)
-    instantiations and the W4A8/W8A8 cores) and ``fused_mlp.cu`` (K9, whose
-    registers set its cooperative grid), one dict a kernel, under the
-    kernel's mangled name."""
+    instantiations and the W4A8/W8A8 cores), ``fused_mlp.cu`` (K9, whose
+    registers set its cooperative grid), ``flash_attention.cu`` (K1, one
+    kernel a head dim) and ``int8_matmul.cu``'s wgmma kernel (K2 at M > 16),
+    one dict a kernel, under the kernel's mangled name. K1's count is its
+    12-warp launch's cap: its consumers' setmaxnreg does not raise what
+    ptxas allocates."""
     import re
 
     out, name, frame, source = [], None, "", ""
@@ -2229,7 +2324,8 @@ def nvcc_report(log: str) -> list[dict]:
                           r"(\d+) bytes spill loads", line):
             frame = "/".join(m.groups())
         if (m := re.search(r"Used (\d+) registers", line)) and name:
-            if source.endswith(("mega_decode.cu", "fused_mlp.cu")):
+            if (source.endswith(("mega_decode.cu", "fused_mlp.cu", "flash_attention.cu"))
+                    or (source.endswith("int8_matmul.cu") and "s8_wgmma" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
             name, frame = None, ""

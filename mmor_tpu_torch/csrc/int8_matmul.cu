@@ -32,9 +32,35 @@
 //      slots, so lane group g owns the four neighbouring columns 4g..4g+3
 //      of the block, one in each 8-column mma tile, and fetches their words
 //      of a word row at once (weight_words.cuh's w_words4).
-//    * tiled kernel (prefill): 64 x 64 block tiles, a 2 x 2 warp grid of
-//      32 x 32 warp tiles, K staged through shared memory 64 at a time.
-//  - K8 is the same two W8A8 kernels with two template parameters changed:
+//    * wgmma kernel (M > 16, prefill; packed words only): see below.
+//    * tiled kernel (M > 16 on K8's byte layout, which no serving path
+//      runs): 64 x 64 block tiles, a 2 x 2 warp grid of 32 x 32 warp tiles
+//      on mma.sync, K staged through shared memory 64 at a time.
+//  - The wgmma kernel computes each output tile transposed, as
+//    W^T (columns x K) times xq^T (K x rows), so that the packed words need
+//    no transpose: a word, four consecutive k of one output column, is one
+//    8-bit A register of wgmma.m64nNk32 (the same map as mma.m16n8k32's A),
+//    and the int8 activation rows are the K-major B operand that 8-bit
+//    wgmma requires. A block is two consumer warpgroups, each covering 64
+//    weight columns by 256 activation rows (one m64n256k32 a 32-k step, s32
+//    accumulators in registers), fed by a ring of 4 stages of 128 k that
+//    warp 0 keeps filled with TMA three tiles ahead: the activation tile
+//    (256 rows x 128 bytes) and the weight tile (32 word rows x 128
+//    columns, four boxes of 32) in the 128-byte swizzle, so that wgmma
+//    reads the activations as they land and a consumer's 32-bit loads of
+//    its A fragments hit 32 distinct banks: the columns are assigned to the
+//    fragment's rows in the order that makes them so (wg_col). Where
+//    N % 4 != 0, which TMA's 16-byte row strides cannot describe, warp 0
+//    copies the words by cp.async instead. Full and empty mbarriers pace
+//    the ring; a consumer keeps one tile's products in flight while it
+//    loads the next tile's fragments. No warp only loads: with 8 warps a
+//    block, two on each SM sub-partition, a thread may hold up to 255
+//    registers (a ninth warp would cap them at 168 and spill the
+//    accumulators). The epilogue, acc * scale[col] * rs[row] in f32 in that
+//    order, stages the tile through shared memory so that the (M, N) stores
+//    are row-major and coalesced. The s32 sums are exact, so the result is
+//    bit for bit the plain version's.
+//  - K8 is the same W8A8 kernels with two template parameters changed:
 //    the weight layout (WLayout::kBytes, the unpacked (K, N) int8 weight:
 //    a thread reads four neighbouring columns of each of four rows as one
 //    4-byte load a row and transposes the 4 x 4 bytes into their words) and
@@ -52,6 +78,7 @@
 #include <stdint.h>
 
 #include "act_quant.cuh"
+#include "hopper.cuh"
 #include "weight_words.cuh"
 
 namespace {
@@ -136,6 +163,8 @@ s8_skinny_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
 }
 
 // ----------------------------------------------------------------- W8A8 tiled
+// K8's byte-layout weight at M > 16 (no serving path; the packed words take
+// the wgmma kernel below)
 constexpr int kTileM = 64, kTileN = 64, kTileKW = 16;  // KW = K / 4 words
 constexpr int kXStride = kTileKW + 4;   // conflict-free A fragment reads
 constexpr int kWStride = kTileN + 8;    // conflict-free B fragment reads
@@ -218,6 +247,244 @@ s8_tiled_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
   }
 }
 
+// ----------------------------------------------------------------- W8A8 wgmma
+namespace wg {
+constexpr int kCols = 128;          // weight columns a block, 64 a consumer warpgroup
+constexpr int kRows = 256;          // activation rows a block: the wgmma's N
+constexpr int kTileK = 128;         // k a stage: 128 bytes of a row, 32 word rows
+constexpr int kWordRows = kTileK / 4;
+constexpr int kStages = 4;
+constexpr int kBox = 32;            // weight columns a 128-byte swizzled box
+constexpr int kBoxBytes = kWordRows * kBox * 4;      // 4 KB
+constexpr int kXBytes = kRows * kTileK;              // 32 KB
+constexpr int kWBytes = kCols / kBox * kBoxBytes;    // 16 KB
+constexpr int kStageBytes = kXBytes + kWBytes;
+constexpr int kThreads = 256;       // two consumer warpgroups; warp 0 also loads
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+static_assert(kRows * (kCols + 4) * 4 <= kStages * kStageBytes, "epilogue tile");
+
+// The weight column (within its 32-column box) of A-fragment row j (0-15) of
+// warp `warp`: the rows take the columns whose 16-byte chunks, swizzled by
+// the word rows t4 and t4 + 4 the lanes read, fall in 32 distinct banks.
+__device__ __forceinline__ int wg_col(int warp, int j) {
+  const int chunk = (warp & 1) * 2 + (j >> 3) + 4 * ((j >> 2) & 1);
+  return chunk * 4 + (j & 3);
+}
+// word (r, c) of a 32 x 32 box in the 128-byte swizzle
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kBox + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+}  // namespace wg
+
+// w_map is the weight's (N, K/4) int32 map, boxes of 32 x 32 words in the
+// 128-byte swizzle, when N % 4 == 0 (w_tma); otherwise warp 0 copies the
+// words itself, 4 bytes a cp.async.
+template <typename OutT>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap w_map, int w_tma,
+                const uint32_t* __restrict__ w, const float* __restrict__ scale,
+                const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n) {
+  using namespace wg;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-aligned for the 128-byte swizzle; offset from the __shared__ array
+  // so that accesses compile to shared-memory loads, not generic ones
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * kRows;
+  const int kw = k / 4, tiles = (k + kTileK - 1) / kTileK;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA bytes' arrival, and each lane's cp.asyncs where they copy the weights
+      mbar_init(&full[s], w_tma ? 1 : 1 + 32);
+      mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Warp 0 loads tile t into stage t % kStages, once every warp has released
+  // the tile that stage held (kStages tiles before).
+  auto produce = [&](int t) {
+    const int s = t % kStages;
+    if (lane == 0 && t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+    __syncwarp();
+    uint8_t* st = smem + s * kStageBytes;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], kXBytes + (w_tma ? kWBytes : 0));
+      tma_load_2d(st, &x_map, &full[s], t * kTileK, m0);
+      if (w_tma) {
+#pragma unroll
+        for (int b = 0; b < kCols / kBox; ++b)
+          tma_load_2d(st + kXBytes + b * kBoxBytes, &w_map, &full[s], n0 + b * kBox,
+                      t * kWordRows);
+      }
+    }
+    if (!w_tma) {  // 32 word rows x 128 columns, into the boxes' swizzled layout
+      for (int c = lane; c < kWordRows * kCols; c += 32) {
+        const int r = c / kCols, col = c % kCols;
+        const int wr = t * kWordRows + r;
+        const bool in = wr < kw && n0 + col < n;
+        uint32_t* dst = reinterpret_cast<uint32_t*>(st + kXBytes + (col / kBox) * kBoxBytes) +
+                        swz(r, col % kBox);
+        cp_async4(dst, in ? w + (size_t)wr * n + n0 + col : w, in ? 4 : 0);
+      }
+      cp_async_arrive(&full[s]);
+    }
+  };
+  const bool loader = threadIdx.x < 32;
+  if (loader)
+    for (int t = 0; t < kStages - 1 && t < tiles; ++t) produce(t);
+
+  // ------------------------------------------------------------- consumers
+  const int cw = threadIdx.x / 128;  // consumer warpgroup: weight columns 64cw..
+  const int warp = (threadIdx.x / 32) % 4;
+  const int g = lane / 4, t4 = lane % 4;
+  const int box = cw * 2 + (warp >> 1);  // this warp's 32-column box
+  const int c_lo = wg_col(warp, g), c_hi = wg_col(warp, g + 8);
+  int acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+
+  // A fragments of tile t (rows g, g + 8 of this warp; k 4t4.. and 16 + 4t4..
+  // of each 32-k step), once the stage has landed
+  auto load_a = [&](uint32_t (&a)[4][4], int t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    const uint32_t* wb =
+        reinterpret_cast<const uint32_t*>(smem + s * kStageBytes + kXBytes + box * kBoxBytes);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int r0 = ks * 8 + t4, r1 = r0 + 4;
+      a[ks][0] = wb[swz(r0, c_lo)];
+      a[ks][1] = wb[swz(r0, c_hi)];
+      a[ks][2] = wb[swz(r1, c_lo)];
+      a[ks][3] = wb[swz(r1, c_hi)];
+    }
+  };
+  auto issue = [&](uint32_t (&a)[4][4], int t) {
+    const uint64_t db = gmma_desc(smem_u32(smem + (t % kStages) * kStageBytes), 16, 8 * 128,
+                                  gmma_layout(128));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs_s8_n256(acc, a[ks], db + 2 * ks, 1);  // +32 B of k
+    wgmma_commit();
+  };
+  // tile t's products are done: release its stage, and warp 0 refills it
+  // with tile t + kStages once the other warps have released it too
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[t % kStages]);
+    if (loader && t + kStages - 1 < tiles) produce(t + kStages - 1);
+  };
+  // one tile's products stay in flight while the next tile's fragments load:
+  // a0 and a1 alternate, and a buffer is reloaded only after the products
+  // that read it have completed
+  uint32_t a0[4][4], a1[4][4];
+  load_a(a0, 0);
+  for (int t = 0; t < tiles; t += 2) {
+    issue(a0, t);
+    if (t > 0) {
+      wgmma_wait<1>();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) fence_regs(a1[ks]);
+      release(t - 1);
+    }
+    if (t + 1 < tiles) {
+      load_a(a1, t + 1);
+      issue(a1, t + 1);
+      wgmma_wait<1>();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) fence_regs(a0[ks]);
+      release(t);
+      if (t + 2 < tiles) load_a(a0, t + 2);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    fence_regs(a0[ks]);
+    fence_regs(a1[ks]);
+  }
+  release(tiles - 1);
+
+  // epilogue: (float)acc * scale[col] * rs[row], staged row-major in the ring
+  __syncthreads();  // both consumer warpgroups are done with the ring
+  constexpr int kStride = kCols + 16 / (int)sizeof(OutT);  // padded row, 16-byte aligned
+  OutT* tile = reinterpret_cast<OutT*>(smem);
+  int cls[2];  // this thread's two columns (fragment rows g and g + 8)
+  float csc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    cls[h] = cw * 64 + (warp >> 1) * 32 + wg_col(warp, g + 8 * h);
+    csc[h] = n0 + cls[h] < n ? scale[n0 + cls[h]] : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {  // rows 8c + 2t4 and + 1
+    const int rl = c * 8 + t4 * 2;
+    const float r0 = m0 + rl < m ? rs[m0 + rl] : 0.f;
+    const float r1 = m0 + rl + 1 < m ? rs[m0 + rl + 1] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float v = (float)acc[4 * c + e] * csc[h] * ((e & 1) ? r1 : r0);
+      tile[(rl + (e & 1)) * kStride + cls[h]] = from_float<OutT>(v);
+    }
+  }
+  __syncthreads();
+  constexpr int kVec = 16 / (int)sizeof(OutT);  // elements a 16-byte store
+  constexpr int kChunks = kCols / kVec;
+  const bool vec = (n % kVec) == 0;
+  for (int c = threadIdx.x; c < kRows * kChunks; c += 256) {
+    const int rl = c / kChunks, cl = (c % kChunks) * kVec;
+    const int row = m0 + rl, col = n0 + cl;
+    if (row >= m || col >= n) continue;
+    const OutT* src = tile + rl * kStride + cl;
+    OutT* dst = out + (size_t)row * n + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < kVec && col + e < n; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_s8_wgmma(const int8_t* xq, const uint32_t* w, const float* scale,
+                            const float* rs, OutT* out, int m, int k, int n, cudaStream_t s) {
+  using namespace wg;
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)k};
+  const cuuint32_t x_box[2] = {kTileK, kRows};
+  if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, x_dims, x_strides, x_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  // TMA rows must be 16-byte strided: the weight's when N % 4 == 0
+  const int w_tma = (n % 4) == 0;
+  const cuuint64_t w_dims[2] = {(cuuint64_t)n, (cuuint64_t)(k / 4)};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)n * 4};
+  const cuuint32_t w_box[2] = {kBox, kWordRows};
+  if (w_tma && !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, w_dims, w_strides,
+                           w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  if (!w_tma) w_map = x_map;  // unused
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        s8_wgmma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const dim3 grid((n + kCols - 1) / kCols, (m + kRows - 1) / kRows);
+  s8_wgmma_kernel<OutT><<<grid, kThreads, kSmem, s>>>(x_map, w_map, w_tma, w, scale, rs, out,
+                                                      m, k, n);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------------- W8A16
 template <typename T>
 __global__ void __launch_bounds__(128)
@@ -255,6 +522,9 @@ cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
   if (m <= 16) {
     s8_skinny_kernel<T, L><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
         x32, w, scale, rs, o, m, kw, n);
+  } else if constexpr (L == WLayout::kWords) {
+    return launch_s8_wgmma<T>(static_cast<const int8_t*>(xq), static_cast<const uint32_t*>(w),
+                              scale, rs, o, m, k, n, s);
   } else {
     dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
     s8_tiled_kernel<T, L><<<grid, 128, 0, s>>>(x32, w, scale, rs, o, m, kw, n);

@@ -34,7 +34,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points and their argument types; each returns a cudaError_t
 SIGNATURES = {
-    "mmor_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mmor_flash_attention": (_P,) * 9 + (_I,) * 6 + (_F, _I, _I, _P),
     "mmor_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "mmor_decode_attention_layer": (_P,) * 7 + (_I,) * 4 + (_F, _I, _I, _P),
     "mmor_int8_matmul_w8a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -60,6 +60,65 @@ def mha_reference(
     return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
 
 
+# K1's tiles (csrc/flash_attention.cu): queries and keys a block walks at once
+FLASH_BLOCK_Q = FLASH_BLOCK_K = 128
+
+
+def flash_segments(batch: int, sq: int, sk: int, segment_ids, kv_segment_ids,
+                   device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (B, Sq) query and (B, Sk) key segment ids K1 compares, int32:
+    zeros where none are given, and the query ids for the keys when only
+    those are given and Sq == Sk (``mha_reference``'s rule)."""
+    q_seg = (segment_ids if segment_ids is not None
+             else torch.zeros(batch, sq, dtype=torch.int32, device=device))
+    if kv_segment_ids is not None:
+        kv_seg = kv_segment_ids
+    elif segment_ids is not None and sq == sk:
+        kv_seg = q_seg
+    else:
+        kv_seg = torch.zeros(batch, sk, dtype=torch.int32, device=device)
+    return q_seg.to(torch.int32), kv_seg.to(torch.int32)
+
+
+def segment_tiles(seg: torch.Tensor, block: int) -> torch.Tensor:
+    """(B, S) int32 -> (B, ceil(S / block), 3) int32: each tile's smallest
+    and largest segment id, and the set of its ids modulo 32 as bits (bit
+    id & 31). The last tile's missing positions repeat its last id, so they
+    change neither."""
+    b, s = seg.shape
+    pad = -s % block
+    if pad:
+        seg = torch.cat([seg, seg[:, -1:].expand(b, pad)], dim=1)
+    tiles = seg.reshape(b, -1, block)
+    lo, hi = torch.aminmax(tiles, dim=-1)
+    present = torch.zeros(*tiles.shape[:2], 32, dtype=torch.bool, device=seg.device)
+    present.scatter_(-1, (tiles & 31).long(), True)
+    bits = (present.long() << torch.arange(32, device=seg.device)).sum(-1)
+    return torch.stack([lo, hi, bits.to(torch.int32)], dim=-1)
+
+
+def flash_tiles(q_tiles: torch.Tensor, k_tiles: torch.Tensor, sq: int, sk: int,
+                causal: bool, block_q: int = FLASH_BLOCK_Q,
+                block_k: int = FLASH_BLOCK_K) -> torch.Tensor:
+    """K1's skip rule on ``segment_tiles`` of the query and key ids: (B,
+    query tiles, key tiles) bool, the key tiles each query tile visits. A
+    key tile is skipped when its [min, max] id range is disjoint from the
+    query tile's, or when the two tiles' ids share no value modulo 32, or,
+    causal, when its first key lies above the diagonal for the tile's last
+    query (key j is visible to query i iff j <= i + Sk - Sq). Each way no
+    pair of the two tiles is visible, so skipping it changes no output."""
+    qmin, qmax, qbits = (q_tiles[..., i, None] for i in range(3))
+    kmin, kmax, kbits = (k_tiles[:, None, :, i] for i in range(3))
+    visit = (kmin <= qmax) & (kmax >= qmin) & ((qbits & kbits) != 0)
+    if causal:
+        dev = q_tiles.device
+        last_row = torch.clamp((torch.arange(q_tiles.shape[1], device=dev) + 1) * block_q,
+                               max=sq) - 1
+        first_key = torch.arange(k_tiles.shape[1], device=dev) * block_k
+        visit &= (first_key[None, :] <= (last_row + sk - sq)[:, None])[None]
+    return visit
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -76,11 +135,12 @@ def flash_attention(
     query i iff j <= i + Sk - Sq, as in ``mha_reference``.
 
     CPU: ``mha_reference``. CUDA: the ``csrc/flash_attention.cu`` kernel on
-    bf16 inputs with head_dim 16, 32, 64 or 128. A query row whose every key
-    is masked comes out 0 from the kernel (``mha_reference`` averages V
-    there); no caller on the serving path produces such a row. The gradient
-    comes with the training slice: the kernel path raises on inputs that
-    require one.
+    bf16 inputs with head_dim 16, 32, 64 or 128, which visits only the key
+    tiles ``flash_tiles`` keeps (a prologue kernel computes the tiles'
+    ``segment_tiles``). A query row whose every key is masked comes out 0
+    from the kernel (``mha_reference`` averages V there); no caller on the
+    serving path produces such a row. The gradient comes with the training
+    slice: the kernel path raises on inputs that require one.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -99,26 +159,24 @@ def flash_attention(
         raise ValueError(f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
     if head_dim not in (16, 32, 64, 128):
         raise ValueError(f"flash_attention: head_dim {head_dim} not in 16/32/64/128")
-    q_seg = (segment_ids if segment_ids is not None
-             else torch.zeros(batch, sq, dtype=torch.int32, device=q.device))
-    if kv_segment_ids is not None:
-        kv_seg = kv_segment_ids
-    elif segment_ids is not None and sq == sk:
-        kv_seg = q_seg
-    else:
-        kv_seg = torch.zeros(batch, sk, dtype=torch.int32, device=q.device)
-    q_seg = _build.aligned(q_seg.to(torch.int32))
-    kv_seg = _build.aligned(kv_seg.to(torch.int32))
+    q_seg, kv_seg = flash_segments(batch, sq, sk, segment_ids, kv_segment_ids, q.device)
     if q_seg.shape != (batch, sq) or kv_seg.shape != (batch, sk):
         raise ValueError("flash_attention: segment ids must be (B, Sq) / (B, Sk)")
     _require_cuda_inputs("flash_attention", {"segment_ids": q_seg,
                                              "kv_segment_ids": kv_seg}, torch.int32)
+    q_seg, kv_seg = _build.aligned(q_seg), _build.aligned(kv_seg)
+    # scratch: the tiles' segment_tiles (the kernel's prologue fills them)
+    # and the counter its blocks take their items from
+    q_tiles = torch.empty(batch, -(-sq // FLASH_BLOCK_Q), 3, dtype=torch.int32, device=q.device)
+    k_tiles = torch.empty(batch, -(-sk // FLASH_BLOCK_K), 3, dtype=torch.int32, device=q.device)
+    next_item = torch.empty(4, dtype=torch.int32, device=q.device)
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
     err = _build.library().mmor_flash_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_seg), _build.ptr(kv_seg), _build.ptr(out),
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_seg), _build.ptr(kv_seg),
+        _build.ptr(q_tiles), _build.ptr(k_tiles), _build.ptr(next_item), _build.ptr(out),
         batch * heads, heads, sq, sk, head_dim, int(causal), float(sm_scale),
-        _build.stream())
+        FLASH_BLOCK_Q, FLASH_BLOCK_K, _build.stream())
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -83,7 +83,8 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
 
     CPU: ``int8_matmul_packed_plain``. CUDA: the ``csrc/int8_matmul.cu``
     kernels — with ``int8_mxu`` a row-quantization kernel (``quantize_rows``'
-    arithmetic) and W8A8 on the int8 tensor cores, else a W8A16 FMA kernel.
+    arithmetic) and W8A8 on the int8 tensor cores (``mma.sync`` at up to 16
+    rows, ``wgmma`` fed by TMA above), else a W8A16 FMA kernel.
     Counts its launches in ``int8_matmul_packed.launches``."""
     m, k = x.shape
     kp, n = w_p.shape

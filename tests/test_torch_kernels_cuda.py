@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmor_tpu_torch.ops import _build
 from mmor_tpu_torch.ops import attention as A
 from mmor_tpu_torch.ops import deformable_sampler as D
 from mmor_tpu_torch.ops import fused_mlp as FM
@@ -125,6 +126,88 @@ def test_flash_attention_fully_masked_rows_are_zero(dev):
     assert rel_l2(out[:, :, :40], ref[:, :, :40]) <= 2e-2
 
 
+def _segments(kind, b, sq, sk, g, dev):
+    """(causal, query ids, key ids) of the masks K1's tile skipping meets."""
+    if kind == "patches_tail":  # sorted patches, the invalid tail -1 (PTv3)
+        seg = (torch.arange(sq, device=dev, dtype=torch.int32) // 100)[None].repeat(b, 1)
+        seg[:, sq - 90:] = -1
+        return False, seg, None
+    if kind == "absent_views":  # the pooler's absent views as segment 0
+        seg = torch.ones(b, sq, dtype=torch.int32, device=dev)
+        seg[:, sq * 5 // 7:] = 0
+        return False, seg, None
+    if kind == "unsorted":  # random ids on separate keys
+        return (False, torch.randint(0, 3, (b, sq), generator=g, device=dev, dtype=torch.int32),
+                torch.randint(0, 3, (b, sk), generator=g, device=dev, dtype=torch.int32))
+    if kind == "causal_leftpad":  # LLaMA's prefill mask
+        seg = torch.ones(b, sq, dtype=torch.int32, device=dev)
+        for r in range(b):
+            seg[r, : 37 * r] = 0
+        return True, seg, None
+    return True, None, None  # causal, Sq <= Sk
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind,sq,sk", [
+    ("patches_tail", 700, 700),
+    ("absent_views", 448, 448),
+    ("unsorted", 191, 333),        # ragged against the 64- and 128-row tiles, Sq != Sk
+    ("causal_leftpad", 257, 257),
+    ("causal_short_q", 65, 300),   # causal with Sq < Sk
+])
+def test_flash_attention_kernel_tile_skipping(dev, d, kind, sq, sk):
+    """K1 against mha_reference on the masks whose key tiles it skips, at
+    each head dim (rel_l2 2e-2: P rounds to bf16 before PV, unnormalised)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (randn(g, 2, 2, s, d, dev=dev) for s in (sq, sk, sk))
+    causal, seg, kv_seg = _segments(kind, 2, sq, sk, g, dev)
+    kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
+    out = A.flash_attention(q, k, v, **kw)
+    ref = A.mha_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    assert rel_l2(out, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("kind,sq,sk", [("patches_tail", 700, 700), ("unsorted", 191, 333)])
+def test_flash_attention_prologue_fills_segment_tiles(dev, kind, sq, sk):
+    """K1's prologue kernel leaves in its scratch what ``segment_tiles``
+    computes: the tiles' id ranges and bits that the skip rule reads."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (randn(g, 2, 2, s, 64, dev=dev) for s in (sq, sk, sk))
+    causal, seg, kv_seg = _segments(kind, 2, sq, sk, g, dev)
+    q_seg, kv_seg = A.flash_segments(2, sq, sk, seg, kv_seg, dev)
+    q_tiles = torch.full((2, -(-sq // 128), 3), 7, dtype=torch.int32, device=dev)
+    k_tiles = torch.full((2, -(-sk // 128), 3), 7, dtype=torch.int32, device=dev)
+    out, counter = torch.empty_like(q), torch.empty(4, dtype=torch.int32, device=dev)
+    err = _build.library().mmor_flash_attention(
+        *(_build.ptr(t) for t in (q, k, v, q_seg, kv_seg, q_tiles, k_tiles, counter, out)),
+        4, 2, sq, sk, 64, int(causal), 0.125, A.FLASH_BLOCK_Q, A.FLASH_BLOCK_K, _build.stream())
+    torch.cuda.synchronize()
+    assert err == 0
+    assert rel_l2(out, A.mha_reference(q, k, v, causal=causal, segment_ids=q_seg,
+                                       kv_segment_ids=kv_seg)) <= 2e-2
+    assert torch.equal(q_tiles, A.segment_tiles(q_seg, A.FLASH_BLOCK_Q))
+    assert torch.equal(k_tiles, A.segment_tiles(kv_seg, A.FLASH_BLOCK_K))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_rows_without_keys_are_zero_at_each_head_dim(dev, d):
+    """Rows whose segment no key carries store 0, whether their query tile
+    visits key tiles (rows 150-255 share a tile with seen rows) or none
+    (rows 256-299)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (randn(g, 1, 2, 300, d, dev=dev) for _ in range(3))
+    qseg = torch.zeros(1, 300, dtype=torch.int32, device=dev)
+    qseg[0, 150:] = 5
+    kseg = torch.zeros(1, 300, dtype=torch.int32, device=dev)
+    out = A.flash_attention(q, k, v, segment_ids=qseg, kv_segment_ids=kseg)
+    ref = A.mha_reference(q, k, v, segment_ids=qseg, kv_segment_ids=kseg)
+    torch.cuda.synchronize()
+    assert not out[:, :, 150:].any()
+    assert rel_l2(out[:, :, :150], ref[:, :, :150]) <= 2e-2
+
+
 def test_flash_attention_refuses_gradients_and_cpu_segments(dev):
     q = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError):
@@ -139,8 +222,11 @@ def test_flash_attention_refuses_gradients_and_cpu_segments(dev):
     (13, 192, 72, torch.bfloat16),   # decode kernel, ragged N
     (5, 128, 70, torch.bfloat16),    # decode kernel, N % 4 != 0
     (14, 11008, 4096, torch.bfloat16),  # decode kernel at bench_decode_parts' batch
-    (100, 256, 90, torch.bfloat16),  # tiled kernel, ragged M and N, N % 4 != 0
+    (100, 256, 90, torch.bfloat16),  # wgmma kernel, ragged M and N, N % 4 != 0
     (70, 128, 64, torch.float32),
+    (17, 4160, 4100, torch.bfloat16),   # wgmma kernel: K % 128 != 0, N off its tiles
+    (100, 4160, 4100, torch.float32),
+    (5667, 4160, 4100, torch.bfloat16),  # more than one 256-row tile, ragged
 ])
 def test_int8_matmul_kernel(dev, m, k, n, dtype):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -590,7 +676,8 @@ def test_fused_o_mlp_kernel_phase_stamps(dev):
 @pytest.mark.parametrize("m,k,n,dtype", [
     (16, 4096, 11264, torch.bfloat16),  # bench_bitcast's shape
     (5, 256, 70, torch.bfloat16),       # ragged N, N % 4 != 0
-    (40, 512, 64, torch.float32),       # above one 16-row tile (mxu8: the tiled kernel)
+    (40, 512, 64, torch.float32),       # above one 16-row tile (mxu8: K2's wgmma kernel)
+    (100, 4160, 4100, torch.bfloat16),  # the wgmma kernel at K % 128 != 0
 ])
 def test_w8b_matmul_kernel(dev, mode, m, k, n, dtype):
     """K10c against its plain version: mxu8 bit for bit, bf16 within

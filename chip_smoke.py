@@ -12,7 +12,8 @@ Phases (each prints its lines; any failure exits non-zero):
    widths (K5-int8), and the microbenchmark kernels K10a-K10f from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
    stack frame and spills of each kernel compiled from ``mega_decode.cu``,
-   ``fused_mlp.cu`` and ``flash_attention.cu``, and of K2's wgmma kernel;
+   ``fused_mlp.cu`` and ``flash_attention.cu``, of K2's wgmma kernel, K8's
+   stream kernel and K10f's product;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -24,7 +25,8 @@ Phases (each prints its lines; any failure exits non-zero):
    with the bound stated on each line, and its device time (each case's
    calls queued behind a spin kernel) beside its roofline bound, the plain
    version's time and, where one PyTorch call computes the
-   same function, that call's time (``torch._int_mm`` on the int8 operands
+   same function, that call's time and the kernel's factor over it
+   (``torch._int_mm`` on the int8 operands
    with the rescales for K2, K8 and K10e's int8 x-read, its rows padded to
    32 where fewer; ``torch._weight_int8pack_mm`` for the W8A16 kernels K10a,
    K10b's w8p, K10c's bf16 mode and K10e's bf16 x-read;
@@ -1414,6 +1416,7 @@ def phase_kernels(dev, summary: dict) -> None:
             max_abs=f"{max_abs:.3e}", bit_exact=exact, ms=f"{ms:.4f}",
             bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, plain_ms=f"{plain_ms:.4f}",
             library_ms="none" if lib_ms is None else f"{lib_ms:.4f}",
+            factor="none" if lib_ms is None else f"{ms / lib_ms:.3f}",
             host_ahead=ahead, main_path=case.on_path, **extra)
         check(err <= case.bound, f"{what}: rel_l2 {err:.3e} > {case.bound:.0e}")
         check(exact or not case.exact, f"{what}: not bit-exact to its plain version")
@@ -2298,7 +2301,7 @@ def _build_phase(build) -> None:
     build.library()
     say("1 build", seconds=f"{secs:.2f}", library=os.path.relpath(path, ROOT))
     log = os.path.join(os.path.dirname(path), "nvcc.log")
-    if os.path.exists(log):  # registers and spills of K1's, K2's wgmma, K5's and K9's kernels
+    if os.path.exists(log):  # registers and spills of K1's, K2's, K5's, K8's, K9's, K10f's kernels
         for line in nvcc_report(open(log).read()):
             say("1 build", **line)
 
@@ -2308,8 +2311,9 @@ def nvcc_report(log: str) -> list[dict]:
     compiled from ``mega_decode.cu`` (its four (WBITS, KVBITS)
     instantiations and the W4A8/W8A8 cores), ``fused_mlp.cu`` (K9, whose
     registers set its cooperative grid), ``flash_attention.cu`` (K1, one
-    kernel a head dim) and ``int8_matmul.cu``'s wgmma kernel (K2 at M > 16),
-    one dict a kernel, under the kernel's mangled name. K1's count is its
+    kernel a head dim), ``int8_matmul.cu``'s wgmma and stream kernels (K2 at
+    M > 16, K8 at M <= 16) and ``reshape_probe.cu``'s product (K10f), one
+    dict a kernel, under the kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
     import re
@@ -2325,7 +2329,9 @@ def nvcc_report(log: str) -> list[dict]:
             frame = "/".join(m.groups())
         if (m := re.search(r"Used (\d+) registers", line)) and name:
             if (source.endswith(("mega_decode.cu", "fused_mlp.cu", "flash_attention.cu"))
-                    or (source.endswith("int8_matmul.cu") and "s8_wgmma" in name)):
+                    or (source.endswith("int8_matmul.cu")
+                        and ("s8_wgmma" in name or "s8_stream" in name))
+                    or (source.endswith("reshape_probe.cu") and "product" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
             name, frame = None, ""

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the flash attention kernel (K1,
-// flash_attention.cu) and the W8A8 prefill product (K2, int8_matmul.cu):
-// mbarriers, TMA tile loads and the host-side tensor maps they read,
-// cp.async with an mbarrier arrival, the warpgroup matrix product (wgmma)
-// with its shared-memory descriptors, and register reallocation between
-// the producer and consumer warpgroups. All of it needs sm_90a.
+// flash_attention.cu), the W8A8 products (K2's prefill and K8's skinny
+// kernel, int8_matmul.cu) and K10f's product (reshape_probe.cu): mbarriers,
+// TMA tile loads and the host-side tensor maps they read, cp.async (with an
+// mbarrier arrival, or in commit groups), the warpgroup matrix product
+// (wgmma) with its shared-memory descriptors, and register reallocation
+// between the producer and consumer warpgroups. All of it needs sm_90a.
 //
 // The tensor maps are encoded on the host by the driver's
 // cuTensorMapEncodeTiled, which is reached through the runtime's
@@ -137,6 +138,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
+}
+// cp.async of 16 bytes, through L2 only; `src_bytes` 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// close this thread's group of cp.asyncs; wait until at most kPending groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // ------------------------------------------------ device: warpgroup roles

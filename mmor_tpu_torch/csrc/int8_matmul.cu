@@ -23,15 +23,17 @@
 //    block per row, the plain version's arithmetic, so the two agree bit for
 //    bit); then int32 accumulation, acc * col_scale * row_scale in f32,
 //    stored in the caller's dtype.
-//    * skinny kernel (M <= 16, decode): one 16-row m-tile; a block of eight
-//      warps covers 32 columns and splits K between its warps, so a 4096
-//      column weight spreads over 128 blocks; operands load straight from
-//      device memory (each weight word is used once), four k-steps of loads
-//      in flight per warp before their products, and the warps' partial
-//      sums meet in shared memory. The mma takes any 8 columns in its n
-//      slots, so lane group g owns the four neighbouring columns 4g..4g+3
-//      of the block, one in each 8-column mma tile, and fetches their words
-//      of a word row at once (weight_words.cuh's w_words4).
+//    * skinny kernel (M <= 16, decode; packed words only): one 16-row
+//      m-tile; a block of eight warps covers 32 columns and splits K
+//      between its warps, so a 4096 column weight spreads over 128 blocks;
+//      operands load straight from device memory (each weight word is used
+//      once), four k-steps of loads in flight per warp before their
+//      products, and the warps' partial sums meet in shared memory. The mma
+//      takes any 8 columns in its n slots, so lane group g owns the four
+//      neighbouring columns 4g..4g+3 of the block, one in each 8-column mma
+//      tile, and fetches their words of a word row at once
+//      (weight_words.cuh's w_words4).
+//    * stream kernel (M <= 16 on K8's byte layout): see below.
 //    * wgmma kernel (M > 16, prefill; packed words only): see below.
 //    * tiled kernel (M > 16 on K8's byte layout, which no serving path
 //      runs): 64 x 64 block tiles, a 2 x 2 warp grid of 32 x 32 warp tiles
@@ -60,12 +62,41 @@
 //    order, stages the tile through shared memory so that the (M, N) stores
 //    are row-major and coalesced. The s32 sums are exact, so the result is
 //    bit for bit the plain version's.
-//  - K8 is the same W8A8 kernels with two template parameters changed:
-//    the weight layout (WLayout::kBytes, the unpacked (K, N) int8 weight:
-//    a thread reads four neighbouring columns of each of four rows as one
-//    4-byte load a row and transposes the 4 x 4 bytes into their words) and
-//    the activation rule (QuantRule::kDivide: x / row_scale in f32, K8's
-//    quantized_matmul.py:81-84). Its epilogue is K2's, in JAX's order.
+//  - K8 takes the activation rule QuantRule::kDivide (x / row_scale in f32,
+//    K8's quantized_matmul.py:81-84) and the unpacked (K, N) int8 weight
+//    (WLayout::kBytes); its epilogue is K2's, in JAX's order. At M > 16 it
+//    is the tiled kernel with a byte-layout loader. At M <= 16 (the decode
+//    shape the perf tools time: 16 x 4096 x 11264) it streams 46 MB of
+//    weight bytes for 16 multiply-adds a byte, so device-memory bytes bound
+//    it. Its first form was the skinny kernel with a byte loader: four
+//    4-byte loads a thread a k-step (a warp load moved 128 bytes), 32
+//    column strips 8 warps apart in K, and the quantize kernel exposed
+//    before it: 0.92 TB/s. The stream kernel instead:
+//    * gives a block a strip of 128 columns (128 bytes of each row) over
+//      all of K. Warp 0 keeps a ring of 6 stages of 128 rows (16 KB) full
+//      with one TMA box a stage in the 128-byte swizzle (cp.async of 4
+//      bytes, or plain byte loads, where N % 16 != 0 and TMA cannot
+//      describe the rows), 96 KB in flight a block, paced by mbarriers;
+//      88 blocks walk the rows of the weight together. Splitting K (2 or
+//      3 ranks a strip, every SM busy, the sums folded through an L2
+//      workspace) was slower on the card, with or without the products;
+//    * has 4 consumer warps take 32 rows of each stage: a lane loads 16
+//      bytes of each of 8 rows (its 16 columns) from the swizzled stage
+//      without bank conflicts, transposes them into 32 mma words with
+//      __byte_perm and runs 16 mma.sync.m16n8k32.s8 (wgmma's 8-bit form
+//      needs both operands K-major, and this weight is N-major); at 16
+//      multiply-adds a byte the tensor cores stay far from their limit;
+//    * quantizes x in a kernel of its own (one block a row, the row held in
+//      registers between its amax and its quantization, stored in the k
+//      order the A registers want, see mma_order), launched before the
+//      product with programmatic dependent launch: the product's blocks
+//      start while it runs, issue their first weight tiles, and wait
+//      (griddepcontrol.wait) only before the activation tiles. Quantizing
+//      inside every product block was twice as slow: each block repeats
+//      all the rows' divisions;
+//    * folds its warps' s32 sums through shared memory (exact, so the
+//      result is the plain version's bit for bit) and applies acc *
+//      scale[col] * rs[row].
 //  - K10c's mxu8 mode is the same two kernels on K2's own packed words
 //    (WLayout::kWords) with K8's rule (QuantRule::kDivide): bench_bitcast's
 //    pack_rows_int8 is pack_int8_rows, and its epilogue, acc * scale in f32
@@ -97,11 +128,12 @@ constexpr int kSkinnyWarps = 8;
 constexpr int kSkinnyN = 32;
 constexpr int kSkinnyUnroll = 4;  // k-steps a warp loads before its products
 
-template <typename OutT, WLayout L>
+template <typename OutT>
 __global__ void __launch_bounds__(kSkinnyWarps * 32)
 s8_skinny_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
                  const float* __restrict__ scale, const float* __restrict__ rs,
                  OutT* __restrict__ out, int m, int kw, int n) {
+  constexpr WLayout L = WLayout::kWords;  // K2's and K10c's packed words
   __shared__ int red[kSkinnyWarps][16][kSkinnyN];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
@@ -160,6 +192,339 @@ s8_skinny_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
     for (int wi = 0; wi < kSkinnyWarps; ++wi) sum += red[wi][row][cl];
     out[(size_t)row * n + col] = from_float<OutT>((float)sum * scale[col] * rs[row]);
   }
+}
+
+// --------------------------------------------- W8A8 skinny, byte weight (K8)
+namespace sk {
+constexpr int kCols = 128;                // weight columns a block: a 128-byte strip of each row
+constexpr int kConsumers = 4;             // consumer warps, 32 k rows of each tile apiece
+constexpr int kTileK = 32 * kConsumers;   // k rows a tile
+constexpr int kStages = 6;
+constexpr int kWBytes = kTileK * kCols;   // 16 KB: one TMA box
+constexpr int kXBytes = 16 * kTileK;      // 2 KB: the 16 activation rows' k
+constexpr int kStageBytes = kWBytes + kXBytes;
+constexpr int kThreads = 32 * (1 + kConsumers);  // warp 0 loads
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+static_assert(kConsumers * 16 * kCols * 4 <= kStages * kStageBytes, "fold buffer");
+
+// byte (r, c) of a tile of 128-byte rows in the 128-byte swizzle (TMA's:
+// the 16-byte chunk index XOR the row mod 8)
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
+}
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+// int (row, col) of a consumer warp's 16 x 128 partial tile: columns XOR
+// (row, col bits 5-6) in bits 0-4, so that both the fragments' stores and
+// the fold's row-wise reads hit 32 banks
+__device__ __forceinline__ int red_at(int row, int col) {
+  return row * kCols + (col ^ ((row & 7) | (((col >> 5) & 3) << 3)));
+}
+
+// The product reads its A registers from xq rows whose k are reordered
+// within each 32: k = 16h + 8a + 2t + b (h, a, b in {0, 1}, t in 0..3) is
+// stored at 16h + 4t + 2a + b, so that the four bytes at 4t.. are the k of
+// the weight rows a lane's 16-byte shared-memory loads gather (below).
+__device__ __forceinline__ int mma_order(int k) {
+  return (k & ~15) | (((k >> 1) & 3) << 2) | (((k >> 3) & 1) << 1) | (k & 1);
+}
+
+// 8 activations of 16 bytes of a row, in f32 (bf16 x: 8 values; f32 x: the
+// first 4 of two loads)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t w = word_of(u, q);
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+    v[2 * q] = f.x;
+    v[2 * q + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+}  // namespace sk
+
+// K8's activation rows (quantize_rows_kernel's kDivide rule: x / scale in
+// f32, rounded half to even, clipped to +-127), one block a row, each
+// thread 16 neighbouring k a pass held in registers between the row's amax
+// and its quantization, stored as one 16-byte chunk in mma_order. The
+// product launched after it may start at once (programmatic dependent
+// launch).
+constexpr int kQuantK = 16;
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_mma_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                         float* __restrict__ row_scale, int k) {
+  using namespace sk;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __shared__ float red[kQuantThreads / 32];
+  const T* xr = x + (size_t)blockIdx.x * k;
+  int8_t* qr = xq + (size_t)blockIdx.x * k;
+  const int passes = (k + kQuantThreads * kQuantK - 1) / (kQuantThreads * kQuantK);
+  // pass ps: this thread's k i.. i + 15 of the row, zeros past its end
+  auto load = [&](int ps, float (&u)[kQuantK]) {
+    const int i = (ps * kQuantThreads + threadIdx.x) * kQuantK;
+    float lo[8], hi[8];
+    if (i < k) {
+      load8(xr + i, lo);
+      load8(xr + i + 8, hi);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      u[e] = i < k ? lo[e] : 0.f;
+      u[8 + e] = i < k ? hi[e] : 0.f;
+    }
+  };
+  // k i + e goes to byte mma_order(e) of the 16 (i is a multiple of 16)
+  auto store = [&](int ps, const float (&u)[kQuantK], float scale) {
+    const int i = (ps * kQuantThreads + threadIdx.x) * kQuantK;
+    if (i >= k) return;
+    uint32_t q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < kQuantK; ++e) {
+      const int pos = mma_order(e);
+      const uint32_t b = (uint32_t)(int)fminf(fmaxf(rintf(u[e] / scale), -127.f), 127.f) & 0xffu;
+      q[pos >> 2] |= b << (8 * (pos & 3));
+    }
+    *reinterpret_cast<uint4*>(qr + i) = make_uint4(q[0], q[1], q[2], q[3]);
+  };
+  constexpr int kHeld = 2;  // passes held in registers (K <= 8192); later ones read x again
+  float v[kHeld][kQuantK];
+  float amax = 0.f;
+#pragma unroll
+  for (int ps = 0; ps < kHeld; ++ps) {
+    load(ps, v[ps]);
+#pragma unroll
+    for (int e = 0; e < kQuantK; ++e) amax = fmaxf(amax, fabsf(v[ps][e]));
+  }
+  for (int ps = kHeld; ps < passes; ++ps) {
+    float u[kQuantK];
+    load(ps, u);
+#pragma unroll
+    for (int e = 0; e < kQuantK; ++e) amax = fmaxf(amax, fabsf(u[e]));
+  }
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+  __syncthreads();
+  amax = red[0];
+#pragma unroll
+  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float scale = amax > 0.f ? amax / 127.f : 1.f;
+  if (threadIdx.x == 0) row_scale[blockIdx.x] = scale;
+#pragma unroll
+  for (int ps = 0; ps < kHeld; ++ps) store(ps, v[ps], scale);
+  for (int ps = kHeld; ps < passes; ++ps) {
+    float u[kQuantK];
+    load(ps, u);
+    store(ps, u, scale);
+  }
+}
+
+// Block `strip` multiplies weight columns 128 strip.. over every k tile of
+// 128 rows. w_map is the (K, N) byte weight, boxes of 128 rows x 128 bytes
+// in the 128-byte swizzle, when N % 16 == 0 (w_tma); otherwise warp 0 copies
+// the bytes itself. x_map is xq (M, K) in mma_order, boxes of 16 rows x 128
+// bytes.
+template <typename OutT>
+__global__ void __launch_bounds__(sk::kThreads, 1)
+s8_stream_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w_map, int w_tma,
+                 const uint8_t* __restrict__ w, const float* __restrict__ scale,
+                 const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n) {
+  using namespace sk;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kCols;
+  const int nt = (k + kTileK - 1) / kTileK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA bytes' arrival, and each lane's where warp 0 copies the weights
+      mbar_init(&full[s], w_tma ? 1 : 1 + 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int acc[16][4] = {};
+  if (warp == 0) {
+    // ------------------------------------------------------------ producer
+    // weight tile i into stage i % kStages, once the consumers have
+    // released the tile that stage held
+    auto load_w = [&](int i) {
+      const int s = i % kStages;
+      if (lane == 0 && i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      __syncwarp();
+      uint8_t* st = smem + s * kStageBytes;
+      const int r0 = i * kTileK;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], kXBytes + (w_tma ? kWBytes : 0));
+        if (w_tma) tma_load_2d(st, &w_map, &full[s], n0, r0);
+      }
+      if (w_tma) return;
+      // 4 bytes a copy, lanes along the row: by cp.async where N % 4 == 0,
+      // else byte by byte
+      for (int c = lane; c < kTileK * kCols / 4; c += 32) {
+        const int r = c / (kCols / 4), cb = (c % (kCols / 4)) * 4;
+        const int row = r0 + r, col = n0 + cb;
+        uint8_t* dst = st + swz(r, cb);
+        const uint8_t* src = w + (size_t)row * n + col;
+        if (n % 4 == 0) {
+          const bool in = row < k && col < n;
+          cp_async4(dst, in ? src : w, in ? 4 : 0);
+        } else {
+          uint32_t v = 0;
+          for (int e = 0; e < 4; ++e)
+            if (row < k && col + e < n) v |= (uint32_t)src[e] << (8 * e);
+          *reinterpret_cast<uint32_t*>(dst) = v;
+        }
+      }
+      if (n % 4 == 0) cp_async_arrive(&full[s]);
+      else mbar_arrive(&full[s]);
+    };
+    auto load_x = [&](int i) {
+      if (lane == 0)
+        tma_load_2d(smem + (i % kStages) * kStageBytes + kWBytes, &x_map, &full[i % kStages],
+                    i * kTileK, 0);
+    };
+    // the weight tiles that fit go out while the quantize kernel runs; the
+    // activation tiles once it has finished
+    const int pre = nt < kStages ? nt : kStages;
+    for (int i = 0; i < pre; ++i) load_w(i);
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int i = 0; i < pre; ++i) load_x(i);
+    for (int i = pre; i < nt; ++i) {
+      load_w(i);
+      load_x(i);
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    // Consumer c takes k rows 32c.. of each tile: one m16n8k32 step. Lane
+    // (g, t4) loads 16 bytes (columns 16g..16g+15) of each of its 8 rows
+    // 2t4 + {0, 1, 8, 9, 16, 17, 24, 25}: in a quarter warp the rows' swizzle
+    // (2t4 + 0 or 1) and the lanes' chunks g meet 8 distinct bank groups.
+    // Rows 0-3 of those are B register 0 of 16 products and rows 4-7
+    // register 1, transposed from the 16-byte loads by __byte_perm: product
+    // j takes column 16g + j in its n slot g. xq's mma_order puts the same k
+    // in the A registers' bytes.
+    const int c = warp - 1, g = lane / 4, t4 = lane % 4;
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint8_t* st = smem + s * kStageBytes;
+      const uint8_t* xs = st + kWBytes;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(xs + swz(g, 32 * c + 4 * t4));
+      a[1] = *reinterpret_cast<const uint32_t*>(xs + swz(g + 8, 32 * c + 4 * t4));
+      a[2] = *reinterpret_cast<const uint32_t*>(xs + swz(g, 32 * c + 16 + 4 * t4));
+      a[3] = *reinterpret_cast<const uint32_t*>(xs + swz(g + 8, 32 * c + 16 + 4 * t4));
+      uint4 rw[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        rw[j] = *reinterpret_cast<const uint4*>(
+            st + swz(32 * c + 2 * t4 + (j & 1) + 8 * (j >> 1), 16 * g));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // the tile's bytes are in registers
+      uint32_t b[16][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // columns 16g + 4q .. + 3: byte e of row i to byte i of word e
+          const uint32_t r0 = word_of(rw[4 * h], q), r1 = word_of(rw[4 * h + 1], q);
+          const uint32_t r2 = word_of(rw[4 * h + 2], q), r3 = word_of(rw[4 * h + 3], q);
+          const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);
+          const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);
+          const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
+          const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
+          b[4 * q][h] = __byte_perm(lo01, lo23, 0x5410);
+          b[4 * q + 1][h] = __byte_perm(lo01, lo23, 0x7632);
+          b[4 * q + 2][h] = __byte_perm(hi01, hi23, 0x5410);
+          b[4 * q + 3][h] = __byte_perm(hi01, hi23, 0x7632);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) mma_s8(acc[j], a, b[j]);
+    }
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // rs is the quantize kernel's
+
+  // the consumers' partial tiles meet in shared memory (the ring is idle:
+  // every tile has been consumed), then acc * scale[col] * rs[row]
+  __syncthreads();
+  int* red = reinterpret_cast<int*>(smem);
+  if (warp > 0) {
+    const int c = warp - 1, g = lane / 4, t4 = lane % 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[c * 16 * kCols + red_at(g + 8 * (e >> 1), 16 * (2 * t4 + (e & 1)) + j)] = acc[j][e];
+  }
+  __syncthreads();
+  const int rows = m < 16 ? m : 16;
+  for (int o = threadIdx.x; o < rows * kCols; o += kThreads) {
+    const int row = o / kCols, cl = o % kCols, col = n0 + cl;
+    if (col >= n) continue;
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w) sum += red[w * 16 * kCols + red_at(row, cl)];
+    out[(size_t)row * n + col] = from_float<OutT>((float)sum * scale[col] * rs[row]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_s8_stream(const T* x, int8_t* xq, float* rs, const uint8_t* w,
+                             const float* scale, T* out, int m, int k, int n, cudaStream_t s) {
+  using namespace sk;
+  if (m > 16) return cudaErrorInvalidValue;
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)k};
+  const cuuint32_t x_box[2] = {kTileK, 16};
+  if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, x_dims, x_strides, x_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  // TMA rows must be 16-byte strided: the weight's when N % 16 == 0
+  const int w_tma = (n % 16) == 0;
+  const cuuint64_t w_dims[2] = {(cuuint64_t)n, (cuuint64_t)k};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)n};
+  const cuuint32_t w_box[2] = {kCols, kTileK};
+  if (w_tma && !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, w_dims, w_strides,
+                           w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  if (!w_tma) w_map = x_map;  // unused
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        s8_stream_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  quantize_mma_rows_kernel<T><<<m, kQuantThreads, 0, s>>>(x, xq, rs, k);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // the product may start while the quantize kernel runs and issue its
+  // first weight tiles; it reads xq and rs only after griddepcontrol.wait
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kCols - 1) / kCols);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, s8_stream_kernel<T>, x_map, w_map, w_tma, w, scale,
+                            static_cast<const float*>(rs), out, m, k, n);
 }
 
 // ----------------------------------------------------------------- W8A8 tiled
@@ -519,13 +884,13 @@ cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
   const int kw = k / 4;
   const uint32_t* x32 = static_cast<const uint32_t*>(xq);
   T* o = static_cast<T*>(out);
-  if (m <= 16) {
-    s8_skinny_kernel<T, L><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
+  if constexpr (L == WLayout::kWords) {
+    if (m > 16)
+      return launch_s8_wgmma<T>(static_cast<const int8_t*>(xq),
+                                static_cast<const uint32_t*>(w), scale, rs, o, m, k, n, s);
+    s8_skinny_kernel<T><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
         x32, w, scale, rs, o, m, kw, n);
-  } else if constexpr (L == WLayout::kWords) {
-    return launch_s8_wgmma<T>(static_cast<const int8_t*>(xq), static_cast<const uint32_t*>(w),
-                              scale, rs, o, m, k, n, s);
-  } else {
+  } else {  // K8 at M > 16 (at M <= 16 it is launch_s8_stream)
     dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
     s8_tiled_kernel<T, L><<<grid, 128, 0, s>>>(x32, w, scale, rs, o, m, kw, n);
   }
@@ -559,6 +924,16 @@ extern "C" int mmor_int8_matmul_bytes(const void* x, void* xq, void* row_scale,
   if (k % 64 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
+  if (m <= 16) {
+    using bf16 = __nv_bfloat16;
+    int8_t* q = static_cast<int8_t*>(xq);
+    float* rs = static_cast<float*>(row_scale);
+    const uint8_t* w8 = static_cast<const uint8_t*>(w);
+    return x_bf16 ? (int)launch_s8_stream<bf16>(static_cast<const bf16*>(x), q, rs, w8, sc,
+                                                 static_cast<bf16*>(out), m, k, n, s)
+                  : (int)launch_s8_stream<float>(static_cast<const float*>(x), q, rs, w8, sc,
+                                                 static_cast<float*>(out), m, k, n, s);
+  }
   constexpr WLayout L = WLayout::kBytes;
   constexpr QuantRule R = QuantRule::kDivide;
   return x_bf16

@@ -155,10 +155,11 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     """K8: x (M, K) @ (w_q (K, N) int8 * scale (N,) f32) as W8A8 -> (M, N)
     in x.dtype.
 
-    CPU: ``int8_matmul_plain``. CUDA: ``csrc/int8_matmul.cu``, K2's two
-    W8A8 kernels with K8's activation rule and a byte-layout weight loader
-    (bf16 or f32 x; K a multiple of 64). Counts its launches in
-    ``int8_matmul.launches``."""
+    CPU: ``int8_matmul_plain``. CUDA: ``csrc/int8_matmul.cu`` (bf16 or f32
+    x; K a multiple of 64): at M <= 16 a quantize kernel and, overlapping
+    it, a product that streams 128-column strips of the weight by TMA;
+    above, K2's quantize kernel with K8's activation rule and a tiled
+    product. Counts its launches in ``int8_matmul.launches``."""
     m, k = x.shape
     kw, n = w_q.shape
     if kw != k or tuple(scale.shape) != (n,):

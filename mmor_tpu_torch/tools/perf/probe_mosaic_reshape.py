@@ -121,8 +121,9 @@ def st_product(a: torch.Tensor | None, b: torch.Tensor, *, mode: str = "transpos
     """K10f probes c, d, e: ``st_product_plain``'s function on f32 operands.
 
     CPU: ``st_product_plain``. CUDA: ``csrc/reshape_probe.cu``'s product (f32
-    FFMA, A read transposed, in its natural order, or built from the one-hot
-    factors); counts its launches in ``st_product.launches``."""
+    FFMA over thread-block clusters that split K, A read transposed, in its
+    natural order, or built from the one-hot factors); counts its launches
+    in ``st_product.launches``."""
     _, bb, tq = _operands(a, b, mode, tq)
     if b.device.type == "cpu":
         return st_product_plain(a, b, mode=mode, tq=tq, onehot=onehot)

@@ -8,14 +8,17 @@ bucket after EOS compaction, K5's piggyback-prefill rows (empty, mid and
 last chunks of the working cache, a chunk with one real column, the decode
 rows bit-identical with and without them), each K5 case at the four
 (weight, KV cache) width pairs, and a cache whose dtype does not match its
-width; K7's f32 and bf16 scales and a fully masked row, K8's
-ragged shapes at both of its kernels, K10a and K10b's ragged N and M above
+width; K7's f32 and bf16 scales and a fully masked row, K8's stream
+kernel at one row and at 16, its weight by TMA, by cp.async (N % 16 != 0)
+and byte by byte (N % 4 != 0), one k tile and a ragged last one, and its
+tiled kernel above 16 rows, K10a and K10b's ragged N and M above
 one 16-row tile; K9 at one row, at the 7B tail, above one 16-row tile and
 above 64 rows, with an f32 residual, and its refusals; K10c's two modes at
 ragged shapes; K10d's windows that reach outside the map; K10e's x-read at
 both x layouts and widths (two row groups, half a row group, a bf16 tile
 past shared memory refused), tiny, nibble and row kernels (both modes, one
-head, one 128-column block), K10f's copies and products at ragged shapes.
+head, one 128-column block), K10f's copies and products at ragged shapes
+(K that the cluster's 16 ranks do not divide, ranks with no k).
 Every test needs a CUDA device and skips without one (the kernels have no CPU mode); run them on the card with
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 
@@ -271,7 +274,13 @@ def test_decode_attention_kernel_last_layer(dev, d, t):
 
 @pytest.mark.parametrize("m,k,n,dtype", [
     (16, 4096, 11264, torch.bfloat16),  # one layer of bench_stream
-    (3, 192, 70, torch.bfloat16),       # skinny kernel, ragged N, N % 4 != 0
+    (1, 4096, 11008, torch.bfloat16),   # skinny kernel at one row, bench_w8a16's width
+    (3, 192, 70, torch.bfloat16),       # skinny kernel, ragged N, N % 4 != 0: bytes by warp 0
+    (16, 640, 130, torch.float32),      # N % 4 != 0 with K split 5 ways
+    (16, 1024, 4100, torch.float32),    # N % 16 != 0: the weight by cp.async, a ragged strip
+    (5, 64, 300, torch.bfloat16),       # K 64: one k tile, half of it past K; cp.async
+    (7, 2048, 4112, torch.bfloat16),    # the weight by TMA, the last strip ragged
+    (16, 4160, 8192, torch.bfloat16),   # 33 k tiles (the last half past K) split 4 ways
     (100, 256, 90, torch.bfloat16),     # tiled kernel, ragged M and N, N % 4 != 0
     (70, 128, 64, torch.float32),
 ])
@@ -287,8 +296,9 @@ def test_int8_matmul_unpacked_kernel(dev, m, k, n, dtype):
     assert Q.int8_matmul.launches == before + 1
     assert out.dtype == dtype
     np.testing.assert_array_equal(out.float().cpu().numpy(), ref.float().cpu().numpy())
-    with pytest.raises(ValueError):
-        Q.int8_matmul(x[:, :100], w_q[:100], scale)  # K % 64 != 0
+    with pytest.raises(ValueError):  # K % 64 != 0
+        Q.int8_matmul(torch.zeros(m, 100, dtype=dtype, device=dev),
+                      torch.zeros(100, n, dtype=torch.int8, device=dev), scale)
 
 
 @pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
@@ -823,7 +833,13 @@ def test_rowrw_probe_kernel(dev, dyn, b, hgn, heads, t):
         assert bool((rows[0] == acc[-1, 0]).all()) and not rows[1:].any()
 
 
-@pytest.mark.parametrize("tq,wh,ww,d", [(256, 32, 40, 32), (40, 3, 7, 20)])
+@pytest.mark.parametrize("tq,wh,ww,d", [
+    (256, 32, 40, 32),  # probe_mosaic_reshape's shapes
+    (40, 3, 7, 20),     # K 21: 4-byte copies of natural A
+    (37, 4, 11, 11),    # K 44, which the 16 ranks do not divide; every copy 4 bytes
+    (36, 5, 9, 12),     # K 45: 16-byte copies of S^T and B, 4-byte ones of natural A
+    (64, 4, 10, 64),    # K 40: six ranks with no k; two channel tiles
+])
 def test_reshape_probe_kernels(dev, tq, wh, ww, d):
     """K10f's copies bit for bit, its three products within rel_l2 1e-6 (f32
     sums in another order), at probe_mosaic_reshape's shapes and ragged

@@ -21,9 +21,10 @@ Tolerances:
   (f32 sums in another order); every row in dynamic mode, row (0, 0) alone
   in static mode, where the TPU left the other rows undefined (NaN in
   interpret mode). Its full acc against numpy in float64: rel_l2 <= 1e-6.
-- K10f: the five printed names and all-ones sums equal the JAX script's;
-  the plain versions against numpy at random inputs, the copies exact, the
-  products rel_l2 <= 1e-6.
+- K10f: the five printed names and all-ones sums equal the JAX script's,
+  at its shape and at the card tests' ragged ones; the plain versions
+  against numpy at random inputs, the copies exact, the products
+  rel_l2 <= 1e-6.
 """
 
 import contextlib
@@ -227,6 +228,30 @@ def test_reshape_probe_main_matches_jax_main(monkeypatch):
     assert got == ref
     assert [s for _, s in ref] == [327680.0, 40960.0, 10485760.0, 10485760.0, 4096.0]
     assert list(result["sums"].items()) == got
+
+
+@pytest.mark.parametrize("tq,wh,ww,d", [
+    (37, 4, 11, 11),  # K 44, which the card kernel's 16 ranks do not divide
+    (36, 5, 9, 12),   # K 45
+    (64, 4, 10, 64),  # K 40: ranks with no k, two channel tiles
+])
+def test_reshape_probe_main_matches_jax_main_at_card_shapes(monkeypatch, tq, wh, ww, d):
+    """Both scripts' mains at the ragged shapes the card tests give K10f
+    (tests/test_torch_kernels_cuda.py::test_reshape_probe_kernels; probe e's
+    one-hot row 3 and column 5 lie inside each window)."""
+    for mod in (jprobe, RP):
+        for name, value in (("TQ", tq), ("WH", wh), ("WW", ww), ("D", d), ("K", wh * ww)):
+            monkeypatch.setattr(mod, name, value)
+    monkeypatch.setattr(jprobe, "pl", interpret_pl())
+    with contextlib.redirect_stdout(io.StringIO()) as jax_out:
+        jprobe.main()
+    with contextlib.redirect_stdout(io.StringIO()) as port_out:
+        RP.main("cpu", repeats=1)
+    ref, got = ok_lines(jax_out.getvalue()), ok_lines(port_out.getvalue())
+    assert len(ref) == 5 and "[FAIL]" not in jax_out.getvalue(), jax_out.getvalue()
+    assert got == ref
+    k = wh * ww
+    assert [s for _, s in ref] == [tq * k, k * d, tq * k * d, tq * k * d, tq * d * 0.5]
 
 
 def test_reshape_probe_plain_versions_match_numpy():

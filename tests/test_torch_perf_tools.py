@@ -82,12 +82,12 @@ def jnp_np(a) -> np.ndarray:
     return np.array(a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a)
 
 
-def weights(n: int, seed: int = 0):
-    """Seeded x (M, K) f32 and N(0, 0.02) weights, quantized by JAX:
+def weights(n: int, seed: int = 0, m: int = M, k: int = K):
+    """Seeded x (m, k) f32 and N(0, 0.02) weights, quantized by JAX:
     (x, w f32, w_q int8, scale f32) as numpy."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((M, K), np.float32)
-    w = (rng.standard_normal((K, n), np.float32) * 0.02).astype(np.float32)
+    x = rng.standard_normal((m, k), np.float32)
+    w = (rng.standard_normal((k, n), np.float32) * 0.02).astype(np.float32)
     w_q, scale = jqmm.quantize_weights(jnp.asarray(w))
     return x, w, np.array(w_q), np.array(scale)
 
@@ -113,21 +113,31 @@ def matmul_interpret(kernel, xs, w, scale, *, block_m, block_k, block_n, acc_dty
 
 
 # ------------------------------------------------------------------ K8
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_int8_matmul_matches_jax_kernel_body_bit_for_bit(dtype):
-    jdt, tdt = DTYPES[dtype]
-    x, _, w_q, scale = weights(384)
-    xj = jnp.asarray(x).astype(jdt)
-    # the TPU wrapper's row quantization (quantized_matmul.py:81-84)
+def jax_w8a8(xj, w_q, scale):
+    """JAX's W8A8 path on the TPU, its kernel body in interpret mode: the
+    wrapper's row quantization (quantized_matmul.py:81-84), the operands
+    zero-padded to (32, 128, 128) tiles (the int8 sublane tile is 32), the
+    row rescale. Returns (out (M, N) as numpy f32, x_q, row_scale (M, 1))."""
+    m, k = xj.shape
+    n = w_q.shape[1]
     xf = xj.astype(jnp.float32)
     row_amax = jnp.max(jnp.abs(xf), axis=1, keepdims=True)
     row_scale = jnp.where(row_amax > 0, row_amax / 127.0, 1.0)
     x_q = jnp.clip(jnp.round(xf / row_scale), -127, 127).astype(jnp.int8)
-    x_q32 = jnp.pad(x_q, ((0, 32 - M), (0, 0)))  # the int8 sublane tile is 32
-    acc = matmul_interpret(lambda n_k: functools.partial(jqmm._kernel, n_k=n_k), [x_q32],
-                           jnp.asarray(w_q), jnp.asarray(scale)[None, :], block_m=32,
+    mp, kp, np_ = -(-m // 32) * 32, -(-k // 128) * 128, -(-n // 128) * 128
+    acc = matmul_interpret(lambda n_k: functools.partial(jqmm._kernel, n_k=n_k),
+                           [jnp.pad(x_q, ((0, mp - m), (0, kp - k)))],
+                           jnp.pad(jnp.asarray(w_q), ((0, kp - k), (0, np_ - n))),
+                           jnp.pad(jnp.asarray(scale), (0, np_ - n))[None, :], block_m=32,
                            block_k=128, block_n=128, acc_dtype=jnp.int32)
-    ref = jnp_np((acc[:M] * row_scale).astype(jdt))
+    return jnp_np((acc[:m, :n] * row_scale).astype(xj.dtype)), x_q, row_scale
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_int8_matmul_matches_jax_kernel_body_bit_for_bit(dtype):
+    jdt, tdt = DTYPES[dtype]
+    x, _, w_q, scale = weights(384)
+    ref, x_q, row_scale = jax_w8a8(jnp.asarray(x).astype(jdt), w_q, scale)
 
     xt = torch.from_numpy(x).to(tdt)
     xq_t, rs_t = tqmm.quantize_rows_div(xt)
@@ -135,6 +145,34 @@ def test_int8_matmul_matches_jax_kernel_body_bit_for_bit(dtype):
     np.testing.assert_array_equal(rs_t.numpy(), np.asarray(row_scale)[:, 0])
     got = tqmm.int8_matmul(xt, torch.from_numpy(w_q), torch.from_numpy(scale))
     assert got.dtype == tdt and got.shape == (M, 384)
+    np.testing.assert_array_equal(to_np(got), ref)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (16, 1024, 384, "bf16"),  # bench_stream's layer, K and N cut
+    (1, 512, 344, "bf16"),    # one row
+    (3, 192, 70, "bf16"),     # ragged N, N % 4 != 0
+    (16, 640, 130, "f32"),    # N % 4 != 0, five 128-row k tiles
+    (16, 512, 260, "f32"),    # N % 16 != 0
+    (5, 64, 300, "bf16"),     # K 64: one k tile, half of it past K
+    (7, 256, 400, "bf16"),    # the last 128-column strip ragged
+    (16, 4160, 128, "bf16"),  # 33 k tiles, the last half past K
+    (100, 256, 90, "bf16"),   # above 16 rows, ragged M and N
+    (70, 128, 64, "f32"),
+])
+def test_int8_matmul_matches_jax_kernel_body_at_card_shapes(m, k, n, dtype):
+    """K8's plain version, which the card tests hold its CUDA kernels to bit
+    for bit, against the JAX kernel body at the shape classes those kernels
+    branch on (tests/test_torch_kernels_cuda.py::test_int8_matmul_unpacked_kernel,
+    K and N cut where the interpret grid would be long), a zero row among them."""
+    jdt, tdt = DTYPES[dtype]
+    x, _, w_q, scale = weights(n, seed=2, m=m, k=k)
+    if m > 1:
+        x[-1] = 0.0  # a zero row takes row scale 1
+    ref, _, _ = jax_w8a8(jnp.asarray(x).astype(jdt), w_q, scale)
+    got = tqmm.int8_matmul(torch.from_numpy(x).to(tdt), torch.from_numpy(w_q),
+                           torch.from_numpy(scale))
+    assert got.dtype == tdt and got.shape == (m, n)
     np.testing.assert_array_equal(to_np(got), ref)
 
 

@@ -769,6 +769,60 @@ def _k5_cases(dev, g, wbits: int = 4, kvbits: int = 4, with_pf: bool = True,
     return [plain_case, pf_case]
 
 
+# the narrow phases' K split across a cluster of blocks a strip, each
+# count timed beside the plan's choice at R = 8 (core_plan's ranks)
+CORE_SPLITS = {"o": (1, 2, 4), "down": (1, 2, 3)}
+
+
+def _core_cases(dev):
+    """K5's weight core alone (``mega_project``) at the four 7B projections,
+    R = 8 decode rows and R = 136 (a 128-row chunk riding along), int4
+    weights in 1024-row groups and int8 weights, bit for bit against the
+    plain version's fold (off the path: K5's calls run the same kernel),
+    at ``core_plan``'s choice and, for the narrow phases at R = 8, at each
+    count of ``CORE_SPLITS``; the bound is the weight bytes, the
+    activations and the outputs (or the int8 operations at R = 136, int4)."""
+    import torch
+
+    from mmor_tpu_torch.ops import mega_decode as M
+    from mmor_tpu_torch.ops import quantized_matmul as Q
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    phases = (("qkv", 4096, 12288, "store", 1024), ("o", 4096, 4096, "resid", 128),
+              ("gate_up", 4096, 22528, "swiglu", 1024), ("down", 11264, 4096, "resid", 1024))
+    cases = []
+    for wbits in (4, 8):
+        for name, k, n, epi, chunk in phases:
+            w = torch.randn(k, n, generator=g, device=dev) * 0.02
+            if wbits == 4:
+                w_q, sc = Q.quantize_weights_int4(w, 1024)
+                w_p = Q.pack_int4_rows(w_q, 1024)
+            else:
+                w_q, sc = Q.quantize_weights(w)
+                w_p = Q.pack_int8_rows(w_q)
+            del w, w_q
+            splits = [(8, r) for r in CORE_SPLITS.get(name, ())]
+            for rows, ranks in [(8, None), (136, None)] + splits:
+                x = torch.randn(rows, k // chunk, chunk, generator=g, device=dev)
+                q, rs = M._quant_rows_f32(x)
+                q, rs = q.reshape(rows, k).to(torch.int8), rs[..., 0].contiguous()
+                resid = torch.randn(rows, n, generator=g, device=dev) if epi == "resid" else None
+                kw = dict(wbits=wbits, chunk=chunk, group=1024, epi=epi, resid=resid)
+                out_cols = n // 2 if epi == "swiglu" else n
+                nbytes = (w_p.numel() * 4 + sc.numel() * 4 + q.numel() + rs.numel() * 4
+                          + rows * out_cols * 4 + (rows * n * 4 if resid is not None else 0))
+                cases.append(Case(
+                    k5_names((wbits, wbits))[0],
+                    f"core {name} w{wbits} R={rows} K={k} N={n}"
+                    + (f" ranks={ranks}" if ranks else ""),
+                    lambda q=q, rs=rs, w_p=w_p, sc=sc, kw=kw, r=ranks: M.mega_project(
+                        q, rs, w_p, sc, ranks=r, **kw),
+                    lambda q=q, rs=rs, w_p=w_p, sc=sc, kw=kw: M.mega_project_plain(q, rs, w_p, sc,
+                                                                                   **kw),
+                    0.0, 20, False, nbytes, {"int8": 2.0 * rows * k * n}, exact=True))
+    return cases
+
+
 def k5_columns(out, ref, what: str) -> dict:
     """K5's new K/V columns against the plain version's: at least
     ``K5_KV_AGREE`` of the entries equal and none more than one apart.
@@ -908,6 +962,9 @@ def kernel_cases(dev):
     cases.extend(_perf_cases(dev))
     cases.extend(_tail_gather_cases(dev))
     cases.extend(_probe_cases(dev))
+    # last, so that every case before it meets the card as it did before
+    # the weight core had cases of its own
+    cases.extend(_core_cases(dev))
     return cases
 
 
@@ -1619,15 +1676,31 @@ def phase_cli(dev, preset_name: str = "7b", quantize: str = "int8", phase: str =
 
 # ---------------------------------------------------------------- phase 5
 # the kernels of csrc/mega_decode.cu (K5), by name in a profiler trace
-K5_KERNEL_NAMES = ("w4a8::skinny_kernel", "w8a8::skinny_kernel", "attention_kernel",
-                   "norm_quant_kernel", "widen_kernel", "narrow_kernel",
-                   "chunk_rope_quant_kernel")
+K5_KERNEL_NAMES = ("core_kernel", "attention_kernel", "norm_quant_kernel", "widen_kernel",
+                   "narrow_kernel", "chunk_rope_quant_kernel")
+# K5's step by part: its weight phases (the core) and its attention kernels
+K5_PARTS = {"weights": ("core_kernel",), "attention": ("attention_kernel",)}
 
 
-def device_window(dev, fn, names=K5_KERNEL_NAMES) -> tuple[int, float, float, float]:
+def union_us(ranges) -> float:
+    """The time covered by (start, end) us ranges, overlaps counted once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(ranges):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def device_window(dev, fn, names=K5_KERNEL_NAMES, parts=None):
     """(device events, device busy us, host wall us, us in the kernels whose
     names contain one of ``names``) of one call of ``fn`` under
-    torch.profiler."""
+    torch.profiler, the busy and kernel us being the kernels' durations
+    summed; with ``parts`` (name: name fragments) also a dict of unions of
+    device intervals: "busy" of every kernel's, "named" of the named
+    kernels', and each part's. A kernel launched with programmatic
+    dependent launch starts while the one before it runs, so a sum counts
+    that overlap twice and a union once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1638,9 +1711,19 @@ def device_window(dev, fn, names=K5_KERNEL_NAMES) -> tuple[int, float, float, fl
         sync(dev)
         wall_us = (time.perf_counter() - t) * 1e6
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    k5_us = sum(e.time_range.elapsed_us() for e in events
-                if any(k in e.name for k in names))
-    return len(events), sum(e.time_range.elapsed_us() for e in events), wall_us, k5_us
+    named = [e for e in events if any(k in e.name for k in names)]
+    out = (len(events), sum(e.time_range.elapsed_us() for e in events), wall_us,
+           sum(e.time_range.elapsed_us() for e in named))
+    if parts is None:
+        return out
+
+    def union(evs):
+        return union_us((e.time_range.start, e.time_range.end) for e in evs)
+
+    unions = {"busy": union(events), "named": union(named)}
+    unions.update({k: union(e for e in events if any(f in e.name for f in v))
+                   for k, v in parts.items()})
+    return out + (unions,)
 
 
 def build_mega_predictor(dev, widths, preset_name: str = "7b"):
@@ -1747,7 +1830,7 @@ def phase_mega_path(dev, predictor=None, widths=(4, 4), phase: str = "5 int4-pat
             t_, c_ = step(c_, t_[:, None])
 
     decode_steps()  # warm
-    n_ev, busy_us, wall_us, k5_us = device_window(dev, decode_steps)
+    n_ev, busy_us, wall_us, k5_us, part_us = device_window(dev, decode_steps, parts=K5_PARTS)
     # K5's roofline for one step at full depth: every layer's weights and
     # scales, and the valid K/V positions with their scales
     valid = int(cache["kv_mask"].sum())
@@ -1760,6 +1843,11 @@ def phase_mega_path(dev, predictor=None, widths=(4, 4), phase: str = "5 int4-pat
         wall_ms_per_step=f"{wall_us / 1e3 / LAUNCH_STEPS:.3f}",
         idle_share=f"{max(0.0, 1 - busy_us / wall_us):.4f}",
         k5_device_ms_per_step=f"{k5_us / 1e3 / LAUNCH_STEPS:.3f}",
+        device_busy_union_ms_per_step=f"{part_us['busy'] / 1e3 / LAUNCH_STEPS:.3f}",
+        idle_share_union=f"{1 - part_us['busy'] / wall_us:.4f}",
+        k5_union_ms_per_step=f"{part_us['named'] / 1e3 / LAUNCH_STEPS:.3f}",
+        **{f"k5_{k}_union_ms_per_step": f"{part_us[k] / 1e3 / LAUNCH_STEPS:.3f}"
+           for k in K5_PARTS},
         k5_bound_ms=f"{k5_bound_ms:.4f}", k5_bound_by=k5_bound_by,
         k5_weight_bytes=w_bytes, k5_kv_bytes=kv_bytes(lc, valid))
     if profile_dir:
@@ -2144,7 +2232,7 @@ def phase_overlap(dev, predictor=None, widths=(4, 4), phase: str = "9 overlap",
         fn()
         sync(dev)
         ms[name] = (time.perf_counter() - t1) * 1e3 / n_steps
-    n_ev, busy_us, wall_us, k5_us = device_window(dev, pf_steps)
+    n_ev, busy_us, wall_us, k5_us, part_us = device_window(dev, pf_steps, parts=K5_PARTS)
     kv_valid = int(cache["kv_mask"].sum())
     w_valid = int((mask[0] * (torch.arange(t2, device=dev) < j * chunk)).sum())
     pf_bound, pf_by = k5_roofline(server.mega.weights, lc, batch + chunk, kv_valid,
@@ -2157,6 +2245,11 @@ def phase_overlap(dev, predictor=None, widths=(4, 4), phase: str = "9 overlap",
         pf_device_busy_ms_per_step=f"{busy_us / 1e3 / n_steps:.3f}",
         pf_idle_share=f"{max(0.0, 1 - busy_us / wall_us):.4f}",
         k5pf_device_ms_per_step=f"{k5_us / 1e3 / n_steps:.3f}",
+        pf_device_busy_union_ms_per_step=f"{part_us['busy'] / 1e3 / n_steps:.3f}",
+        pf_idle_share_union=f"{1 - part_us['busy'] / wall_us:.4f}",
+        k5pf_union_ms_per_step=f"{part_us['named'] / 1e3 / n_steps:.3f}",
+        **{f"k5pf_{k}_union_ms_per_step": f"{part_us[k] / 1e3 / n_steps:.3f}"
+           for k in K5_PARTS},
         k5pf_bound_ms=f"{pf_bound:.4f}", k5pf_bound_by=pf_by,
         k5_plain_bound_ms=f"{plain_bound:.4f}", k5_plain_bound_by=plain_by)
     if profile_dir:

@@ -17,7 +17,7 @@
 // exact signed int32 sum and the TPU kernel's 8 * rowsum correction is not
 // needed. The activations are quantized per row first (K2's kernel, the
 // plain version's arithmetic).
-//  - skinny kernel (M <= 16): w4a8.cuh, the W4A8 product K5 also uses.
+//  - skinny kernel (M <= 16): w4a8.cuh.
 //  - tiled kernel (prefill): 64 x 64 block tiles, a 2 x 2 warp grid of
 //    32 x 32 warp tiles; per K-group the block stages 16 weight word rows
 //    (64 rows of each half) and the two matching 64-row activation slices

@@ -17,9 +17,8 @@
 // The pf rows (c prompt tokens of one stream of the next batch) add c rows
 // to every matmul: at c = 128 their int8 operations at the card's peak take
 // about as long as the weight bytes, so the step's least time barely grows,
-// which is why they ride along. The skinny W4A8 kernel reads the weights
-// once per 16-row tile, though, so today a step with them costs several
-// plain steps; sharing one weight read among the tiles is a later change.
+// which is why they ride along: the weight core (mega_core.cuh) reads each
+// weight tile once for the decode and the chunk rows together.
 //
 // Design: one C entry point runs all L layers with no Python between them;
 // for each layer it enqueues a fixed sequence of kernels on the caller's
@@ -28,18 +27,22 @@
 //   1. RMSNorm (its mean of squares in double, a row's chunk blocks one
 //      cluster sharing their partial sums) and int8 quantization per
 //      (row, ck-chunk), in f32 as x * (1/rs);
-//   2. fused-qkv W4A8 (w4a8.cuh), each chunk's exact int32 dot folded with
-//      its weight scale and row-chunk scale; or W8A8 (w8a8.cuh), each
-//      chunk's dot folded with its row-chunk scale and the per-channel
-//      weight scale applied after the sum;
-//   3. attention of the B decode rows, one block per (row, head): RoPE,
-//      per-(row, head) int8 quantization of q * sm_scale, k and v (the new
-//      K/V column is emitted for the caller's cache update), logits over the
-//      valid cache positions with the current token's int8 term inline,
-//      the softmax weights times the value scales quantized to int8 over T,
-//      the int8 x int4 (or exact int8 x int8) weighted sum, and the
-//      per-(row, head) int8
-//      quantization of the output for the o-projection;
+//   2. fused qkv on the weight core (mega_core.cuh, launched with
+//      programmatic dependent launch so that its first weight tiles load
+//      while kernel 1 runs): one TMA weight stream a block for all R rows,
+//      each chunk's exact int32 dot folded in chunk order with its weight
+//      scale and row-chunk scale (W4A8), or with its row-chunk scale and
+//      then the per-channel weight scale (W8A8);
+//   3. attention of the B decode rows, one cluster of up to 8 blocks per
+//      (row, head) splitting the cache positions (2 at T = 1024): RoPE, per-(row, head)
+//      int8 quantization of q * sm_scale, k and v (the new K/V column is
+//      emitted for the caller's cache update), the key and value rows
+//      streamed through shared memory by coalesced cp.async, logits over the
+//      valid positions as exact __dp4a dots with the current token's int8
+//      term inline, the cluster's max, the softmax weights times the value
+//      scales quantized to int8 over T, the exact int32 weighted sums met
+//      in rank 0 through distributed shared memory, and the per-(row, head)
+//      int8 quantization of the output for the o-projection;
 //   3a. (pf) RoPE and int8 q/k/v of the c chunk rows, one block per (row,
 //      head), emitting the chunk's K/V;
 //   3b. (pf) the chunk's attention, one block per (row, head): int8 x int4
@@ -50,16 +53,18 @@
 //      weights times their value scales quantized to int8, the f32 inline
 //      sum over the chunk's dequantized values, and the output's int8
 //      quantization for the o-projection;
-//   4. o-projection W4A8/W8A8 with per-(row, head) activation scales, plus
-//      the f32 residual;
+//   4. o-projection on the weight core with per-(row, head) activation
+//      scales, plus the f32 residual;
 //   5. RMSNorm 2 and chunk quantization (kernel 1);
-//   6. gate_up W4A8/W8A8, each block owning 16 gate columns and their 16 up
-//      columns, so SiLU(gate) * up happens in its epilogue;
+//   6. gate_up on the weight core, each block owning 32 gate columns and
+//      their 32 up columns, so SiLU(gate) * up happens in its epilogue;
 //   7. chunk quantization of the SwiGLU output (kernel 1 without a norm);
-//   8. down W4A8/W8A8 plus the f32 residual.
+//   8. down on the weight core plus the f32 residual.
 // That is 8 launches a layer from C++ (10 with pf rows), about 260 a token
-// at 7B. No step mixes rows other than the chunk's own attention, so the
-// decode rows' outputs do not depend on whether pf rows ride along. The
+// at 7B; the weight core's tiling comes from the caller
+// (ops/mega_decode.py::core_plan). No step mixes rows other than the
+// chunk's own attention, so the decode rows' outputs do not depend on
+// whether pf rows ride along. The
 // weights are the per-layer (K/8, N) or (K/4, N) stacks the prefill reads,
 // walked in place through a host array of their device pointers (no second
 // copy). The int4 caches are (L, B, H, T, Dh/2) bytes (the working cache
@@ -67,8 +72,7 @@
 // channel); the int8 caches (L, B, H, T, Dh) int8, the per-op path's layout;
 // both with (L, B, H, T) bf16 scales: a key row is 64 or 128 contiguous
 // bytes, and a masked position is never loaded. The four (WBITS, KVBITS)
-// pairs are instantiations of one template: the int4 paths' code is that of
-// the int4-only kernel, unchanged.
+// pairs are instantiations of one template.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,8 +81,7 @@
 #include <cooperative_groups.h>
 #include <type_traits>
 
-#include "w4a8.cuh"
-#include "w8a8.cuh"
+#include "mega_core.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -97,6 +100,12 @@ __device__ __forceinline__ float row_scale(float amax) {
 }
 __device__ __forceinline__ float quant8(float x, float inv) {
   return fminf(fmaxf(rintf(x * inv), -127.f), 127.f);
+}
+
+// lets the weight core launched after this kernel (with programmatic
+// dependent launch) start and issue its first weight tiles
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <bool IS_MAX>
@@ -173,6 +182,7 @@ __global__ void __launch_bounds__(kQuantThreads)
 norm_quant_kernel(const float* __restrict__ x, const float* __restrict__ norm,
                   int8_t* __restrict__ q, float* __restrict__ rs, int width,
                   int chunk, float eps) {
+  launch_dependents();
   __shared__ float red[kQuantThreads / 32];
   __shared__ double red_d[kQuantThreads / 32];
   __shared__ double part;  // this chunk's sum of squares
@@ -387,56 +397,294 @@ __device__ __forceinline__ float cache_weighted_sum(const float* w_s, const uint
   return ov;
 }
 
-// grid B * H, kDh threads; dynamic shared memory t_cap floats
+// The decode rows' attention, one cluster of `ranks` blocks a (row, head),
+// rank r taking the `span` cache positions from r * span. Each block:
+//  - computes RoPE and the int8 q, k, v of its (row, head) (rank 0 emits
+//    the new K/V column);
+//  - streams its key rows, then its value rows, through a ring of
+//    kAttnRing tiles of kAttnTile positions in shared memory by cp.async,
+//    16 bytes a thread a copy, so that a warp's loads are consecutive bytes
+//    (a masked position is zero-filled, not read); the value tiles load
+//    while the cluster meets over the softmax;
+//  - takes each logit as an exact int32 dot on __dp4a, 8 lanes a key row
+//    at int8, 4 at int4 (the biased nibbles against the query's even and
+//    odd channels, less 8 times the query's sum), then * qs * k_scale;
+//  - meets the cluster through distributed shared memory: the logits' max,
+//    then the weights' max (the softmax weights times the value scales),
+//    then the int32 weighted sums of its values by the int8 weights.
+// Rank 0 takes the exps' sum in the order of the one-block kernel this
+// replaces (thread d: positions d, d + 128, ..., from whichever rank holds
+// them; then the block's tree), adds the current token's terms and
+// quantizes the output. So every number is that kernel's: the weighted
+// sums are exact integers at both widths. Clusters of 2 at T = 1024 keep
+// the 7B step's 512 blocks resident at once (clusters of 8 with 128
+// positions a rank ran in about three waves).
+constexpr int kAttnTile = 64;   // positions a staged tile
+constexpr int kAttnRing = 4;    // tiles in flight
+constexpr int kAttnSpan = 512;  // positions a rank, at least
+constexpr int kMaxAttnRanks = 8;  // the largest portable cluster
+
+// grid B * H * ranks, clusters of `ranks` blocks along x, kDh threads;
+// dynamic shared memory 5 * span words
 template <int KVBITS>
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p) {
-  extern __shared__ float w_s[];  // logits, then weights, then int8 weights
+__global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs p, int span) {
+  launch_dependents();
+  constexpr int RB = row_bytes<KVBITS>(), CH = RB / 16;
+  extern __shared__ float dyn[];
+  float* w_s = dyn;            // this rank's logits, then weights, then int8 weights
+  float* ew = dyn + span;      // its exps
+  float* ks_s = ew + span;     // its key scales,
+  float* vs_s = ks_s + span;   // value scales
+  int* m_s = reinterpret_cast<int*>(vs_s + span);  // and mask, staged once
+  __shared__ __align__(16) uint8_t ring[kAttnRing][kAttnTile * RB];
   __shared__ float red[kAttnThreads / 32];
   __shared__ double red_d[kAttnThreads / 32];
   __shared__ float qraw[kDh], kraw[kDh];
-  __shared__ int q8s[kDh];
-  __shared__ float part[kAttnThreads / 32][kDh];
-  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads, d = threadIdx.x;
-  const int dim = p.heads * kDh;
+  __shared__ __align__(16) int8_t q8b[kDh];
+  __shared__ int parts[kAttnThreads / 32][kDh];
+  __shared__ float x_max, x_wamax;  // this rank's maxima, read by the cluster
+  __shared__ int x_ov[kDh];         // its weighted sums, read by rank 0
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int bh = blockIdx.x / ranks, b = bh / p.heads, h = bh % p.heads, d = threadIdx.x;
+  const int warp = d / 32, lane = d % 32;
+  const int dim = p.heads * kDh, t_cap = p.t_cap;
+  const int t0 = rank * span, t1 = t0 + span < t_cap ? t0 + span : t_cap;
+  const int ntiles = t1 > t0 ? (t1 - t0 + kAttnTile - 1) / kAttnTile : 0;
+  const size_t lbh = ((size_t)p.layer * p.batch + b) * p.heads + h;
+  const uint8_t* kb = p.k_cache + lbh * t_cap * RB;
+  const uint8_t* vb = p.v_cache + lbh * t_cap * RB;
+  {
+    const int* mb = p.kv_mask + (size_t)b * t_cap;
+    const __nv_bfloat16* ksb = p.k_scale + lbh * t_cap;
+    const __nv_bfloat16* vsb = p.v_scale + lbh * t_cap;
+    for (int t = t0 + d; t < t1; t += kAttnThreads) {
+      m_s[t - t0] = mb[t];
+      ks_s[t - t0] = __bfloat162float(ksb[t]);
+      vs_s[t - t0] = __bfloat162float(vsb[t]);
+    }
+    __syncthreads();
+  }
+
+  // ring load i: key tile i, then value tile i - ntiles, into ring slot
+  // i % kAttnRing; one commit group a load (empty past the last)
+  auto issue = [&](int i) {
+    if (i < 2 * ntiles) {
+      const uint8_t* src = i < ntiles ? kb : vb;
+      const int ts = t0 + (i % ntiles) * kAttnTile;
+      const int te = ts + kAttnTile < t1 ? ts + kAttnTile : t1;
+      uint8_t* dst = ring[i % kAttnRing];
+      for (int c = d; c < (te - ts) * CH; c += kAttnThreads) {
+        const int t = ts + c / CH;
+        const bool on = m_s[t - t0] != 0;
+        cp_async16(dst + c * 16, on ? src + (size_t)t * RB + (c % CH) * 16 : src, on ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kAttnRing - 1; ++i) issue(i);
+
   const RopeQuant r = rope_quant(p.qkv + (size_t)b * 3 * dim + h * kDh, dim,
                                  p.cos + b * kDh, p.sin + b * kDh, p.sm_scale, qraw, kraw,
                                  red);
-  const size_t lbh = ((size_t)p.layer * p.batch + b) * p.heads + h;
-  p.knew[lbh * kDh + d] = (int8_t)r.k8;
-  p.vnew[lbh * kDh + d] = (int8_t)r.v8;
-  if (d == 0) {
-    p.knew_s[lbh] = r.ks;
-    p.vnew_s[lbh] = r.vs;
+  if (rank == 0) {
+    p.knew[lbh * kDh + d] = (int8_t)r.k8;
+    p.vnew[lbh * kDh + d] = (int8_t)r.v8;
+    if (d == 0) {
+      p.knew_s[lbh] = r.ks;
+      p.vnew_s[lbh] = r.vs;
+    }
   }
-  q8s[d] = (int)r.q8;
+  q8b[d] = (int8_t)r.q8;
   const float vcur = r.v8 * r.vs;
   // the current token's logit: the exact int8 dot, then its two scales
   // (a sum of integers in f32 is exact in any order)
   const float lcur = __fmul_rn(__fmul_rn(block_reduce<false>(r.q8 * r.k8, red), r.ks), r.qs);
+  const int qsum = (int)block_reduce<false>(r.q8, red);  // exact: |sum| <= 128 * 127
 
-  const int t_cap = p.t_cap;
-  const float mx = block_reduce<true>(
-      cache_logits<KVBITS>(q8s, r.qs, p.k_cache + lbh * t_cap * row_bytes<KVBITS>(),
-                           p.k_scale + lbh * t_cap, p.kv_mask + (size_t)b * t_cap, t_cap,
-                           w_s, lcur),
-      red);
-  SoftmaxSum<KVBITS> sum = 0;
-  float wamax = 0.f;
-  cache_weights<KVBITS>(w_s, p.v_scale + lbh * t_cap, t_cap, mx, &sum, &wamax);
-  const float wc = softmax_exp<KVBITS>(lcur - mx);
-  const float denom = (float)(block_sum(sum, red, red_d) + wc);
-  const float wrs = row_scale(block_reduce<true>(wamax, red));
-  const float winv = 1.f / wrs;
-  for (int t = d; t < t_cap; t += kAttnThreads) w_s[t] = quant8(w_s[t], winv);
+  // int8: 8 lanes a key row, 16 bytes each; int4: 4 lanes, 32 channels each
+  constexpr int LPR = KVBITS == 8 ? 8 : 4;
+  const int l = lane % LPR, grp = lane / LPR;
+  uint32_t qa[4], qb[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (KVBITS == 8) {
+      qa[i] = *reinterpret_cast<const uint32_t*>(q8b + 16 * l + 4 * i);
+    } else {  // a key byte holds channel 2j (low nibble) and 2j + 1
+      const uint32_t lo = *reinterpret_cast<const uint32_t*>(q8b + 32 * l + 8 * i);
+      const uint32_t hi = *reinterpret_cast<const uint32_t*>(q8b + 32 * l + 8 * i + 4);
+      qa[i] = __byte_perm(lo, hi, 0x6420);  // even channels
+      qb[i] = __byte_perm(lo, hi, 0x7531);  // odd channels
+    }
+  }
+  float mx = lcur, wrs = 1.f, denom = 0.f, wc = 0.f;
+  constexpr int NCH = KVBITS == 8 ? 4 : 8;  // value channels a lane sums
+  int a[NCH];
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) a[j] = 0;
+
+  for (int i = 0; i < 2 * ntiles; ++i) {
+    issue(i + kAttnRing - 1);
+    cp_async_wait<kAttnRing - 1>();  // load i has landed (this thread's copies)
+    __syncthreads();
+    const uint8_t* tl = ring[i % kAttnRing];
+    const int ts = t0 + (i % ntiles) * kAttnTile;
+    const int tn = (ts + kAttnTile < t1 ? ts + kAttnTile : t1) - ts;
+    if (i < ntiles) {
+      // logits of the tile's positions
+      constexpr int per_pass = (kAttnThreads / 32) * (32 / LPR);
+      for (int t_ = 0; t_ < tn; t_ += per_pass) {
+        const int tt = t_ + warp * (32 / LPR) + grp;
+        const bool in = tt < tn;
+        int dot = 0;
+        if (in) {
+          const uint4 kw = *reinterpret_cast<const uint4*>(tl + tt * RB + 16 * l);
+          const uint32_t w[4] = {kw.x, kw.y, kw.z, kw.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if constexpr (KVBITS == 8) {
+              dot = __dp4a((int)w[q], (int)qa[q], dot);
+            } else {
+              dot = __dp4a((int)(w[q] & 0x0F0F0F0Fu), (int)qa[q], dot);
+              dot = __dp4a((int)((w[q] >> 4) & 0x0F0F0F0Fu), (int)qb[q], dot);
+            }
+          }
+        }
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (in && l == 0) {
+          const int t = ts + tt;
+          if constexpr (KVBITS == 4) dot -= 8 * qsum;  // the nibbles' +8 bias
+          const float logit = m_s[t - t0] != 0
+                                  ? __fmul_rn(__fmul_rn((float)dot, r.qs), ks_s[t - t0])
+                                  : kNegInf;
+          w_s[t - t0] = logit;
+          mx = fmaxf(mx, logit);
+        }
+      }
+    } else {
+      // this rank's int32 sums of the values by the int8 weights: a warp
+      // takes every fourth position (int4: two at a time, a half warp
+      // each), a lane 4 channels (int4: 8)
+      if constexpr (KVBITS == 8) {
+        for (int tt = warp; tt < tn; tt += kAttnThreads / 32) {
+          const int wt = (int)w_s[ts + tt - t0];
+          if (wt == 0) continue;
+          const uint32_t quad = *reinterpret_cast<const uint32_t*>(tl + tt * RB + 4 * lane);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a[j] += wt * (int)(int8_t)(quad >> (8 * j));
+        }
+      } else {
+        for (int tt = warp + (kAttnThreads / 32) * (lane / 16); tt < tn;
+             tt += 2 * (kAttnThreads / 32)) {
+          const int wt = (int)w_s[ts + tt - t0];
+          if (wt == 0) continue;
+          const uint32_t oct = *reinterpret_cast<const uint32_t*>(tl + tt * RB + 4 * (lane % 16));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) a[j] += wt * ((int)((oct >> (4 * j)) & 0xFu) - 8);
+        }
+      }
+    }
+    __syncthreads();  // the slot is free for load i + kAttnRing
+    if (i == ntiles - 1) {
+      // the softmax, while the value tiles load: the cluster's max
+      mx = block_reduce<true>(mx, red);
+      if (d == 0) x_max = mx;
+      cluster.sync();
+      for (int rr = 0; rr < ranks; ++rr) mx = fmaxf(mx, *cluster.map_shared_rank(&x_max, rr));
+      // exps, and the weights: the exps times the value scales
+      float wamax = 0.f;
+      for (int t = t0 + d; t < t1; t += kAttnThreads) {
+        const float e = softmax_exp<KVBITS>(w_s[t - t0] - mx);
+        ew[t - t0] = e;
+        const float wv = e * vs_s[t - t0];
+        w_s[t - t0] = wv;
+        wamax = fmaxf(wamax, wv);
+      }
+      wamax = block_reduce<true>(wamax, red);
+      if (d == 0) x_wamax = wamax;
+      cluster.sync();
+      for (int rr = 0; rr < ranks; ++rr)
+        wamax = fmaxf(wamax, *cluster.map_shared_rank(&x_wamax, rr));
+      wrs = row_scale(wamax);
+      const float winv = 1.f / wrs;
+      if (rank == 0) {
+        SoftmaxSum<KVBITS> sum = 0;
+        for (int t = d; t < t_cap; t += kAttnThreads) {
+          const int rr = t / span;
+          sum += cluster.map_shared_rank(ew, rr)[t - rr * span];
+        }
+        wc = softmax_exp<KVBITS>(lcur - mx);
+        denom = (float)(block_sum(sum, red, red_d) + wc);
+      }
+      for (int t = t0 + d; t < t1; t += kAttnThreads) w_s[t - t0] = quant8(w_s[t - t0], winv);
+      __syncthreads();
+    }
+  }
+  cp_async_wait<0>();
+  if (ntiles == 0) {
+    // a rank with no positions still meets the cluster's three exchanges
+    mx = block_reduce<true>(mx, red);
+    if (d == 0) x_max = mx;
+    cluster.sync();
+    for (int rr = 0; rr < ranks; ++rr) mx = fmaxf(mx, *cluster.map_shared_rank(&x_max, rr));
+    if (d == 0) x_wamax = 0.f;
+    cluster.sync();
+  }
+
+  if constexpr (KVBITS == 4) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[j] += __shfl_xor_sync(0xffffffffu, a[j], 16);
+    if (lane < 16)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) parts[warp][8 * lane + j] = a[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) parts[warp][4 * lane + j] = a[j];
+  }
   __syncthreads();
-  const float ov = cache_weighted_sum<KVBITS>(w_s, p.v_cache + lbh * t_cap * row_bytes<KVBITS>(),
-                                              t_cap, part);
-  const float attn = __fadd_rn(__fmul_rn(ov, wrs), __fmul_rn(wc, vcur)) / denom;
+  int ov = 0;
+#pragma unroll
+  for (int w = 0; w < kAttnThreads / 32; ++w) ov += parts[w][d];
+  x_ov[d] = ov;
+  cluster.sync();
+  if (rank == 0) {
+    ov = 0;
+    for (int rr = 0; rr < ranks; ++rr) ov += cluster.map_shared_rank(x_ov, rr)[d];
+    const float attn = __fadd_rn(__fmul_rn((float)ov, wrs), __fmul_rn(wc, vcur)) / denom;
+    // int8 per (row, head) for the o-projection
+    const float as = row_scale(block_reduce<true>(fabsf(attn), red));
+    p.a8[(size_t)b * dim + h * kDh + d] = (int8_t)quant8(attn, 1.f / as);
+    if (d == 0) p.ars[(size_t)b * p.heads + h] = as;
+  }
+  cluster.sync();  // no rank leaves while rank 0 reads its shared memory
+}
 
-  // int8 per (row, head) for the o-projection
-  const float as = row_scale(block_reduce<true>(fabsf(attn), red));
-  p.a8[(size_t)b * dim + h * kDh + d] = (int8_t)quant8(attn, 1.f / as);
-  if (d == 0) p.ars[(size_t)b * p.heads + h] = as;
+// the decode attention's cluster: ranks of at least kAttnSpan positions
+// (1-8); `span` positions a rank
+inline int attn_ranks(int t_cap) {
+  const int r = (t_cap + kAttnSpan - 1) / kAttnSpan;
+  return r < 1 ? 1 : r > kMaxAttnRanks ? kMaxAttnRanks : r;
+}
+
+template <int KVBITS>
+cudaError_t launch_attention(const AttnArgs& pa, int batch, int heads, int t_cap, size_t smem,
+                             cudaStream_t s) {
+  const int ranks = attn_ranks(t_cap), span = (t_cap + ranks - 1) / ranks;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * heads * ranks);
+  cfg.blockDim = dim3(kAttnThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ranks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, attention_kernel<KVBITS>, pa, span);
 }
 
 // ------------------------------------------------ 3a-b. the pf chunk's rows
@@ -483,6 +731,7 @@ __global__ void __launch_bounds__(kAttnThreads) chunk_rope_quant_kernel(ChunkArg
 // 3b. grid c * H, kDh threads; dynamic shared memory T2 + c floats
 template <int KVBITS>
 __global__ void __launch_bounds__(kAttnThreads) chunk_attention_kernel(ChunkArgs p) {
+  launch_dependents();
   extern __shared__ float w_s[];  // T2 working-cache weights, then c inline ones
   __shared__ float red[kAttnThreads / 32];
   __shared__ double red_d[kAttnThreads / 32];
@@ -595,19 +844,10 @@ struct MegaArgs {
   const void *x_pf, *cos_pf, *sin_pf, *amask, *k_work, *k_work_s, *v_work, *v_work_s,
       *work_mask;
   void *x_pf_out, *knew_pf, *knew_pf_s, *vnew_pf, *vnew_pf_s;
+  mc::Plan plans[4];  // the weight phases' tilings: qkv, o, gate_up, down
   int n_layers, batch, dim, heads, ffn, t_cap, ck, chunk, t2;
   float eps, sm_scale;
 };
-
-// One weight phase at the weights' width: W4A8 with per-(K-chunk, channel)
-// scales, or W8A8 with per-channel scales.
-template <int WBITS, int EPI>
-cudaError_t project(const w4a8::SkinnyArgs& p, cudaStream_t s) {
-  if constexpr (WBITS == 4)
-    return w4a8::launch_skinny<EPI, float>(p, s);
-  else
-    return w8a8::launch_skinny<EPI>(p, s);
-}
 
 // All L layers at one (WBITS, KVBITS) pair: the kernel sequence above.
 template <int WBITS, int KVBITS>
@@ -619,11 +859,14 @@ int run_layers(const MegaArgs& a, cudaStream_t s) {
   float* xr = static_cast<float*>(a.x_res);
   float* x2f = static_cast<float*>(a.x2);
   const float* nf = static_cast<const float*>(a.norms);
-  const uint32_t* hq32 = static_cast<const uint32_t*>(a.hq);
+  const int8_t* hq8 = static_cast<const int8_t*>(a.hq);
+  float* qkvf = static_cast<float*>(a.qkv);
+  float* mbuf = static_cast<float*>(a.mbuf);
   const float* hrsf = static_cast<const float*>(a.hrs);
   const int rows = batch + chunk;
   const int count = batch * dim, count_pf = chunk * dim;
-  const size_t attn_smem = (size_t)t_cap * sizeof(float);
+  const size_t attn_smem = 5 * (size_t)((t_cap + attn_ranks(t_cap) - 1) / attn_ranks(t_cap)) *
+                           sizeof(float);
   const size_t chunk_smem = (size_t)(t2 + chunk) * sizeof(float);
   static size_t attn_smem_set = 48 * 1024, chunk_smem_set = 48 * 1024;
   cudaError_t e;
@@ -647,10 +890,10 @@ int run_layers(const MegaArgs& a, cudaStream_t s) {
     // 1-2: attention norm, chunk quantization, fused qkv
     if ((e = norm_quant(xr, norm1, a.hq, a.hrs, rows, dim, ck, a.eps, s)) != cudaSuccess)
       return (int)e;
-    w4a8::SkinnyArgs pq{hq32, hrsf, static_cast<const uint32_t*>(slot(0, l)),
-                        static_cast<const float*>(slot(1, l)), nullptr, a.qkv,
-                        rows, dim, 3 * dim, ck, ck};
-    if ((e = project<WBITS, w4a8::kStoreF32>(pq, s)) != cudaSuccess) return (int)e;
+    const mc::Args pq{hq8, hrsf, static_cast<const uint32_t*>(slot(0, l)),
+                      static_cast<const float*>(slot(1, l)), nullptr, qkvf, rows, dim,
+                      3 * dim, ck, ck};
+    if ((e = mc::project<WBITS, mc::kStoreF32>(pq, a.plans[0], s)) != cudaSuccess) return (int)e;
     // 3: attention of the decode rows
     AttnArgs pa{static_cast<const float*>(a.qkv), static_cast<const float*>(a.cos),
                 static_cast<const float*>(a.sin), static_cast<const uint8_t*>(a.k_cache),
@@ -661,8 +904,8 @@ int run_layers(const MegaArgs& a, cudaStream_t s) {
                 static_cast<float*>(a.knew_s), static_cast<int8_t*>(a.vnew),
                 static_cast<float*>(a.vnew_s), static_cast<int8_t*>(a.a8),
                 static_cast<float*>(a.ars), l, batch, heads, t_cap, a.sm_scale};
-    attention_kernel<KVBITS><<<batch * heads, kAttnThreads, attn_smem, s>>>(pa);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    if ((e = launch_attention<KVBITS>(pa, batch, heads, t_cap, attn_smem, s)) != cudaSuccess)
+      return (int)e;
     // 3a-b: the chunk rows' q/k/v, then their attention
     if (chunk > 0) {
       ChunkArgs pc{static_cast<const float*>(a.qkv), static_cast<const float*>(a.cos_pf),
@@ -681,26 +924,24 @@ int run_layers(const MegaArgs& a, cudaStream_t s) {
       if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     }
     // 4: o-projection (activation scales per (row, head)) + residual
-    w4a8::SkinnyArgs po{static_cast<const uint32_t*>(a.a8), static_cast<const float*>(a.ars),
-                        static_cast<const uint32_t*>(slot(2, l)),
-                        static_cast<const float*>(slot(3, l)), xr, a.x2, rows, dim, dim,
-                        ck, kDh};
-    if ((e = project<WBITS, w4a8::kResidF32>(po, s)) != cudaSuccess) return (int)e;
+    const mc::Args po{static_cast<const int8_t*>(a.a8), static_cast<const float*>(a.ars),
+                      static_cast<const uint32_t*>(slot(2, l)),
+                      static_cast<const float*>(slot(3, l)), xr, x2f, rows, dim, dim, ck, kDh};
+    if ((e = mc::project<WBITS, mc::kResidF32>(po, a.plans[1], s)) != cudaSuccess) return (int)e;
     // 5-6: MLP norm, chunk quantization, gate_up with SwiGLU
     if ((e = norm_quant(x2f, norm2, a.hq, a.hrs, rows, dim, ck, a.eps, s)) != cudaSuccess)
       return (int)e;
-    w4a8::SkinnyArgs pg{hq32, hrsf, static_cast<const uint32_t*>(slot(4, l)),
-                        static_cast<const float*>(slot(5, l)), nullptr, a.mbuf,
-                        rows, dim, 2 * ffn, ck, ck};
-    if ((e = project<WBITS, w4a8::kSwiGLU>(pg, s)) != cudaSuccess) return (int)e;
+    const mc::Args pg{hq8, hrsf, static_cast<const uint32_t*>(slot(4, l)),
+                      static_cast<const float*>(slot(5, l)), nullptr, mbuf, rows, dim,
+                      2 * ffn, ck, ck};
+    if ((e = mc::project<WBITS, mc::kSwiGLU>(pg, a.plans[2], s)) != cudaSuccess) return (int)e;
     // 7-8: chunk quantization of the SwiGLU output, down + residual
     if ((e = norm_quant(static_cast<const float*>(a.mbuf), nullptr, a.hq, a.hrs, rows, ffn,
                         ck, a.eps, s)) != cudaSuccess)
       return (int)e;
-    w4a8::SkinnyArgs pd{hq32, hrsf, static_cast<const uint32_t*>(slot(6, l)),
-                        static_cast<const float*>(slot(7, l)), x2f, xr, rows, ffn, dim,
-                        ck, ck};
-    if ((e = project<WBITS, w4a8::kResidF32>(pd, s)) != cudaSuccess) return (int)e;
+    const mc::Args pd{hq8, hrsf, static_cast<const uint32_t*>(slot(6, l)),
+                      static_cast<const float*>(slot(7, l)), x2f, xr, rows, ffn, dim, ck, ck};
+    if ((e = mc::project<WBITS, mc::kResidF32>(pd, a.plans[3], s)) != cudaSuccess) return (int)e;
   }
   narrow_kernel<<<(count + 255) / 256, 256, 0, s>>>(xr, static_cast<__nv_bfloat16*>(a.x_out),
                                                     count);
@@ -716,9 +957,12 @@ int run_layers(const MegaArgs& a, cudaStream_t s) {
 // Layer-pointer slots in the host array `layers` (8 * L device pointers):
 // slot * L + layer, slot 0/1 qkv w/scale, 2/3 o, 4/5 gate_up, 6/7 down:
 // (K/8, N) int32 words and (K/ck, N) f32 scales at wbits 4, (K/4, N) words
-// and (N,) f32 scales at wbits 8. x_in (B, D) bf16; norms (L, 2, D) f32;
-// caches (L, B, H, T, Dh/2) uint8 at kvbits 4 or (L, B, H, T, Dh) int8 at
-// kvbits 8, with (L, B, H, T) bf16 scales; kv_mask (B, T) int32; cos/sin
+// and (N,) f32 scales at wbits 8. `plans`, a host array of 32 ints: the
+// four weight phases' (gw, wr, wu, slab_rows, stages, stage_rows, unit_k,
+// ranks),
+// qkv, o, gate_up, down (ops/mega_decode.py::core_plan). x_in (B, D) bf16; norms (L, 2, D)
+// f32; caches (L, B, H, T, Dh/2) uint8 at kvbits 4 or (L, B, H, T, Dh) int8
+// at kvbits 8, with (L, B, H, T) bf16 scales; kv_mask (B, T) int32; cos/sin
 // (B, Dh) f32. Scratch for R = B + chunk rows: x_res, x2 (R, D) f32; hq (R,
 // max(D, F)) int8; hrs (R, max(D, F) / ck) f32; qkv (R, 3D) f32; a8 (R, D)
 // int8; ars (R, H) f32; mbuf (R, F) f32. Outputs: x_out (B, D) bf16 (before
@@ -737,10 +981,10 @@ extern "C" int mmor_mega_decode(
     void* vnew, void* vnew_s, const void* x_pf, const void* cos_pf, const void* sin_pf,
     const void* amask, const void* k_work, const void* k_work_s, const void* v_work,
     const void* v_work_s, const void* work_mask, void* x_pf_out, void* knew_pf,
-    void* knew_pf_s, void* vnew_pf, void* vnew_pf_s, int n_layers, int batch, int dim,
-    int heads, int ffn, int t_cap, int ck, int chunk, int t2, int wbits, int kvbits,
-    float eps, float sm_scale, void* stream) {
-  if ((wbits != 4 && wbits != 8) || (kvbits != 4 && kvbits != 8))
+    void* knew_pf_s, void* vnew_pf, void* vnew_pf_s, const void* plans, int n_layers,
+    int batch, int dim, int heads, int ffn, int t_cap, int ck, int chunk, int t2, int wbits,
+    int kvbits, float eps, float sm_scale, void* stream) {
+  if ((wbits != 4 && wbits != 8) || (kvbits != 4 && kvbits != 8) || plans == nullptr)
     return (int)cudaErrorInvalidValue;
   if (dim != heads * kDh || ck % (wbits == 4 ? 256 : 128) ||
       ck > kQuantThreads * kMaxChunkPerThread || dim / ck > kMaxNormChunks || dim % ck ||
@@ -750,12 +994,48 @@ extern "C" int mmor_mega_decode(
                     !k_work_s || !v_work || !v_work_s || !work_mask || !x_pf_out ||
                     !knew_pf || !knew_pf_s || !vnew_pf || !vnew_pf_s))
     return (int)cudaErrorInvalidValue;
-  const MegaArgs a{x_in, layers_host, norms, k_cache, k_scale, v_cache, v_scale, kv_mask,
-                   cos, sin, x_res, x2, hq, hrs, qkv, a8, ars, mbuf, x_out, knew, knew_s,
-                   vnew, vnew_s, x_pf, cos_pf, sin_pf, amask, k_work, k_work_s, v_work,
-                   v_work_s, work_mask, x_pf_out, knew_pf, knew_pf_s, vnew_pf, vnew_pf_s,
-                   n_layers, batch, dim, heads, ffn, t_cap, ck, chunk, t2, eps, sm_scale};
+  const int* pl = static_cast<const int*>(plans);
+  MegaArgs a{x_in, layers_host, norms, k_cache, k_scale, v_cache, v_scale, kv_mask,
+             cos, sin, x_res, x2, hq, hrs, qkv, a8, ars, mbuf, x_out, knew, knew_s,
+             vnew, vnew_s, x_pf, cos_pf, sin_pf, amask, k_work, k_work_s, v_work,
+             v_work_s, work_mask, x_pf_out, knew_pf, knew_pf_s, vnew_pf, vnew_pf_s, {},
+             n_layers, batch, dim, heads, ffn, t_cap, ck, chunk, t2, eps, sm_scale};
+  for (int i = 0; i < 4; ++i) {
+    const int* q = pl + 8 * i;
+    a.plans[i] = mc::Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wbits == 4) return kvbits == 4 ? run_layers<4, 4>(a, s) : run_layers<4, 8>(a, s);
   return kvbits == 4 ? run_layers<8, 4>(a, s) : run_layers<8, 8>(a, s);
+}
+
+// K5's weight core alone (mega_core.cuh), one launch: xq (m, k) int8 with
+// rs (m, k / chunk) f32, the words and scales of one weight (as in
+// `layers` above), resid (m, n) f32 for epi 1 (else null), out (m, n) f32,
+// or (m, n / 2) for epi 2; epi 0 f32 store, 1 f32 residual, 2 SwiGLU; the
+// plan's (gw, wr, wu, slab_rows, stages, stage_rows, unit_k) from
+// ops/mega_decode.py::core_plan.
+extern "C" int mmor_mega_project(const void* xq, const void* rs, const void* w, const void* sc,
+                                 const void* resid, void* out, int m, int k, int n, int group,
+                                 int chunk, int wbits, int epi, int gw, int wr, int wu,
+                                 int slab_rows, int stages, int stage_rows, int unit_k,
+                                 int ranks, void* stream) {
+  const mc::Args p{static_cast<const int8_t*>(xq), static_cast<const float*>(rs),
+                   static_cast<const uint32_t*>(w), static_cast<const float*>(sc),
+                   static_cast<const float*>(resid), static_cast<float*>(out), m, k, n,
+                   group, chunk};
+  const mc::Plan pl{gw, wr, wu, slab_rows, stages, stage_rows, unit_k, ranks};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi == mc::kResidF32 && resid == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (wbits == 4) {
+    if (epi == mc::kStoreF32) e = mc::project<4, mc::kStoreF32>(p, pl, s);
+    if (epi == mc::kResidF32) e = mc::project<4, mc::kResidF32>(p, pl, s);
+    if (epi == mc::kSwiGLU) e = mc::project<4, mc::kSwiGLU>(p, pl, s);
+  } else if (wbits == 8) {
+    if (epi == mc::kStoreF32) e = mc::project<8, mc::kStoreF32>(p, pl, s);
+    if (epi == mc::kResidF32) e = mc::project<8, mc::kResidF32>(p, pl, s);
+    if (epi == mc::kSwiGLU) e = mc::project<8, mc::kSwiGLU>(p, pl, s);
+  }
+  return (int)e;
 }

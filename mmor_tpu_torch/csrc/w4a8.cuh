@@ -1,5 +1,6 @@
-// W4A8 skinny product shared by K3 (int4_matmul.cu, decode rows of the
-// per-op int4 path) and K5 (mega_decode.cu, every matmul phase).
+// W4A8 skinny product of K3 (int4_matmul.cu, decode rows of the per-op
+// int4 path); its mma_s8 also serves K10e (megakernel_probe.cu) and K5's
+// weight core (mega_core.cuh).
 //
 // Weights are pack_int4_rows words: within each K-group of `group` rows,
 // byte b of word r holds row 4r+b in its low nibble and row group/2+4r+b in

@@ -41,7 +41,8 @@ SIGNATURES = {
     "mmor_int8_matmul_bytes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmor_int8_matmul_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmor_int4_matmul_w4a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mmor_mega_decode": (_P,) * 37 + (_I,) * 11 + (_F, _F, _P),
+    "mmor_mega_decode": (_P,) * 38 + (_I,) * 11 + (_F, _F, _P),
+    "mmor_mega_project": (_P,) * 6 + (_I,) * 15 + (_P,),
     "mmor_ms_deform_attn": (_P,) * 5 + (_I,) * 8 + (_P,),
     "mmor_w8a16_bytes": (_P,) * 4 + (_I,) * 4 + (_P,),
     "mmor_wp_matmul": (_P,) * 4 + (_I,) * 5 + (_P,),

@@ -39,6 +39,7 @@ its piggyback-prefill (``pf``) rows:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -243,6 +244,265 @@ def _w8a8_chunks(q: torch.Tensor, rs: torch.Tensor, w_p: torch.Tensor,
         dot = (q[:, rows].double() @ w8[rows]).float()
         acc = acc + dot * rs[:, c:c + 1]
     return acc * scale[None, :]
+
+
+# --------------------------------------------------------- the weight core
+# csrc/mega_core.cuh's constants: its epilogues in order, a TMA box's word
+# columns, a stage's word rows, consumer warps a block, ring stages, a
+# block's shared memory; the H100's SMs, an SM's shared memory and what it
+# reserves a block
+CORE_EPILOGUES = ("store", "resid", "swiglu")
+CORE_BOX_COLS, CORE_STAGE_WORDS, CORE_WARPS, CORE_MAX_STAGES = 32, 32, 9, 24
+CORE_UNIT_WARPS, CORE_MAX_RANKS = 4, 8
+CORE_SMEM, CORE_SMS, SM_SMEM, SM_BLOCK_RESERVE = 232448, 132, 233472, 1024
+
+
+@dataclass(frozen=True)
+class CorePlan:
+    """The tiling of one launch of K5's weight core (``csrc/mega_core.cuh``).
+    A block owns a strip of ``boxes`` 32-column word boxes (the SwiGLU
+    phase: 32 gate columns and the 32 up columns that pair with them) and
+    walks all of K once for the
+    ``slab_rows`` rows of its slab. K falls into units of ``unit_k`` rows, a
+    weight group at int4 and whole chunks at int8, which one warp folds at
+    once. The block's consumer warps form ``wr`` row sets of ``gw`` 8-row
+    groups, and each row set ``wu`` warps that take its units in turn (the
+    ring carries a stage of each of a round's ``wu`` units in turn, each
+    unit warp's into a sub-ring of ``stages / wu`` slots of its own); a row
+    set's units fold in unit order. A ring stage is ``stage_rows`` word rows
+    of each box and their activation bytes, taken in 32-k steps of 32 word
+    rows; ``slots`` is the number of chunk dots a warp keeps in its table
+    until its unit folds. With ``ranks`` > 1 a cluster of that many blocks
+    takes each strip, rank r the r-th of ``ranks`` runs of units in K order,
+    and rank 0 adds every rank's chunk terms in chunk order. The C entry
+    points take ``c_args``."""
+
+    n: int
+    k: int
+    chunk: int
+    rows: int
+    wbits: int
+    epi: str
+    group: int
+    boxes: int
+    strips: int
+    gw: int
+    wr: int
+    wu: int
+    slab_rows: int
+    slabs: int
+    stages: int
+    stage_rows: int
+    unit_k: int
+    slots: int
+    smem: int
+    ranks: int
+
+    @property
+    def c_args(self) -> tuple[int, ...]:
+        return (self.gw, self.wr, self.wu, self.slab_rows, self.stages, self.stage_rows,
+                self.unit_k, self.ranks)
+
+
+@functools.lru_cache(maxsize=None)
+def core_plan(n: int, k: int, chunk: int, rows: int, wbits: int, epi: str,
+              group: int | None = None, ranks: int | None = None) -> CorePlan:
+    """The launch of K5's weight core for R = ``rows`` activation rows times
+    a (K, N) weight, chunk-quantized activations, epilogue ``epi``
+    ("store", "resid" or "swiglu"). Raises ValueError for what the kernel
+    does not take: at int4 K % 256, group % 256, K % group, chunk % 128,
+    and chunk == group or, with "resid", (group / 2) % chunk; at int8 K %
+    128, chunk % 128, K % chunk; an odd N for SwiGLU; ``ranks`` (the
+    blocks of a cluster that split K) outside 1-8 or above the units.
+    ``ranks`` None: 2 for the int4 down projection at up to 8 rows, 1
+    elsewhere (see below).
+
+    The o and down phases take one 32-column box a block (N = 4096 still
+    gives 128 blocks), qkv two and gate_up a gate and an up box. Up to 16
+    rows are one row set (8-row groups gw = 1 or 2) whose four warps take
+    the units in turn; up to 32 rows two sets whose two warps each take
+    their units in turn; more rows sets of two groups, up to 144 rows
+    (nine sets) a slab, past which the grid's slabs each stream the weights
+    again. A stage is 16 KB of words (128 word rows of one box, 64 of two)
+    up to 32 rows and 32 word rows past that (the activations fill the
+    stage), fewer where a unit holds fewer; an int8 unit is the least
+    multiple of the chunk that fills whole stages and divides K. The ring
+    takes the shared memory that the blocks resident on an SM leave each
+    other (an SM holds the grid in ceil(blocks / 132) rounds, at most 4
+    blocks of up to 4 row groups, else 1; an SM has 228 KB and reserves 1
+    KB a block): the most unit warps whose sub-rings fit it, 1 to 24
+    stages a unit warp's sub-ring (2 at least where one warp takes every
+    unit), at most 24 in all. Its shared memory also stages the slab's
+    chunk scales and the block's weight scales, which the folds read."""
+    if epi not in CORE_EPILOGUES:
+        raise ValueError(f"core_plan: epilogue {epi!r}, not one of {CORE_EPILOGUES}")
+    if wbits == 4:
+        if group is None or k % 256 or group % 256 or k % group or chunk % 128:
+            raise ValueError(f"core_plan: int4 needs K % 256, group % 256, K % group and "
+                             f"chunk % 128 (K={k}, group={group}, chunk={chunk})")
+        if chunk != group and (epi != "resid" or (group // 2) % chunk):
+            raise ValueError(f"core_plan: an int4 chunk ({chunk}) is the group ({group}), or "
+                             "divides its half with the residual epilogue")
+    elif wbits == 8:
+        if k % 128 or chunk % 128 or k % chunk:
+            raise ValueError(f"core_plan: int8 needs K % 128, chunk % 128 and K % chunk "
+                             f"(K={k}, chunk={chunk})")
+        group = chunk  # not read: the scales are per channel
+    else:
+        raise ValueError(f"core_plan: wbits {wbits}, not 4 or 8")
+    if rows < 1 or n < 1 or (epi == "swiglu" and n % 2):
+        raise ValueError(f"core_plan: {rows} rows, N {n} ({epi})")
+    groups = -(-rows // 8)
+    gw = min(groups, 2)
+    slab_groups = min(groups, gw * CORE_WARPS)
+    slabs = -(-groups // slab_groups)
+    wr = -(-slab_groups // gw)
+    boxes = 1 if epi == "resid" else 2
+    out_cols = n // 2 if epi == "swiglu" else n
+    strips = -(-out_cols // (CORE_BOX_COLS if epi == "swiglu" else boxes * CORE_BOX_COLS))
+    stage_rows = 128 // boxes if slab_groups <= 4 else CORE_STAGE_WORDS
+    if wbits == 4:
+        while (group // 8) % stage_rows:
+            stage_rows //= 2
+        unit_k = group
+    else:
+        unit_k = math.lcm(chunk, 4 * stage_rows)
+        while k % unit_k:
+            stage_rows //= 2
+            unit_k = math.lcm(chunk, 4 * stage_rows)
+    units = k // unit_k
+    if ranks is None:
+        # K split across a cluster against one block a strip, the narrow
+        # phases at R = 8 (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3 at
+        # 700 W, ms): int4 down 0.0139 / 2 ranks 0.0119 / 3 0.0188, int4 o
+        # 0.0096 / 0.0105 / 4 ranks 0.0188, int8 down 0.0220 / 0.0225 /
+        # 0.0217, int8 o 0.0121 / 0.0119 / 0.0216: only the int4 down phase
+        # (whole-group chunks, the residual) gains beyond the timing's spread;
+        # in the int4 K5 step (phase 5, one call) 2 ranks there took K5's
+        # kernels from 3.907-3.909 ms a step to 3.830-3.835
+        ranks = 2 if wbits == 4 and epi == "resid" and chunk == group and rows <= 8 else 1
+    if not 1 <= ranks <= min(CORE_MAX_RANKS, units):
+        raise ValueError(f"core_plan: {ranks} ranks for {units} units of K")
+    frag = boxes * 2 * gw * 4 * 32 * 4  # a warp's accumulators, in bytes
+    scales = 8 * slab_groups * (k // chunk) + boxes * CORE_BOX_COLS * (k // group if wbits == 4 else 1)
+    stage = (boxes * stage_rows * CORE_BOX_COLS * 4
+             + (2 if wbits == 4 else 1) * (stage_rows // CORE_STAGE_WORDS) * 8 * slab_groups * 128)
+    lpu = unit_k // (stage_rows * (4 if wbits == 8 else 8))  # ring loads a unit
+    resident = min(-(-strips * slabs * ranks // CORE_SMS), 4 if wr * gw <= 4 else 1)
+    rank_units = -(-units // ranks)  # the most units a rank takes
+    # Warps that split the units store the chunks' terms and fill sub-rings
+    # of their own: the most unit warps (4, 2, then 1) whose sub-rings
+    # fit the share of an SM's shared memory that lets every resident block
+    # run at once (one stage a warp; two where one warp takes every unit,
+    # its rows' every stage, so that a load overlaps the products)
+    for wu in sorted({w for w in (4, 2, 1)
+                      if w <= min(CORE_WARPS // wr, CORE_UNIT_WARPS, units // ranks)} | {1},
+                     reverse=True):
+        lazy = wu > 1 or ranks > 1  # chunk terms, added in order at the end
+        slots = group // 2 // chunk if (wbits == 4 and chunk != group and not lazy) else 0
+        fixed = (1024 + wr * wu * slots * frag
+                 + (wr * (k // chunk) * frag if lazy else 0) + 4 * scales)
+        budget = min(CORE_SMEM, SM_SMEM // resident - SM_BLOCK_RESERVE) - fixed
+        per_warp = -(-rank_units // wu) * lpu
+        least = min(per_warp, 2 if wu == 1 else 1)
+        if budget // (stage + 16) // wu >= least:
+            break
+    stages = wu * min(CORE_MAX_STAGES // wu, per_warp, max(least, budget // (stage + 16) // wu))
+    smem = fixed + stages * (stage + 16)
+    if smem > CORE_SMEM:
+        raise ValueError(f"core_plan: {smem} bytes of shared memory at {rows} rows")
+    return CorePlan(n, k, chunk, rows, wbits, epi, group, boxes, strips, gw, wr, wu,
+                    8 * slab_groups, slabs, stages, stage_rows, unit_k, slots, smem, ranks)
+
+
+def _core_epilogue(acc: torch.Tensor, epi: str, resid: torch.Tensor | None) -> torch.Tensor:
+    """The weight core's epilogues on the folded f32 sums (K5's phases)."""
+    if epi == "store":
+        return acc
+    if epi == "resid":
+        return resid + acc
+    f = acc.shape[1] // 2
+    gate, up = acc[:, :f], acc[:, f:]
+    return gate * torch.sigmoid(gate) * up
+
+
+def mega_project_plain(q: torch.Tensor, rs: torch.Tensor, w_p: torch.Tensor,
+                       scale: torch.Tensor, *, wbits: int, chunk: int, group: int | None = None,
+                       epi: str = "store", resid: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch K5 weight phase: ``_w4a8_chunks`` or ``_w8a8_chunks``
+    (the chain ``mega_decode_layers_plain`` runs), then the epilogue."""
+    if wbits == 4:
+        acc = _w4a8_chunks(q, rs, w_p, scale, group, chunk)
+    else:
+        acc = _w8a8_chunks(q, rs, w_p, scale, chunk)
+    return _core_epilogue(acc, epi, resid)
+
+
+def mega_project(q: torch.Tensor, rs: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
+                 *, wbits: int, chunk: int, group: int | None = None, epi: str = "store",
+                 resid: torch.Tensor | None = None, ranks: int | None = None) -> torch.Tensor:
+    """K5's weight core alone, one matmul phase of the megakernel: int8
+    activations q (R, K) with per-(row, chunk) f32 scales rs (R, K/chunk)
+    times one layer's int4 words (K/8, N) with (K/group, N) scales, or int8
+    words (K/4, N) with (N,) scales; ``epi`` "store" returns the (R, N) f32
+    sums, "resid" adds ``resid`` (R, N) f32, "swiglu" returns (R, N/2)
+    silu(gate) * up of the paired columns. CPU: ``mega_project_plain``.
+    CUDA: the ``mmor_mega_project`` entry point at ``core_plan``'s tiling
+    (``ranks``: the blocks of a cluster that split K, None for the plan's
+    choice), bit for bit the plain
+    version's; counts ``mega_project.launches``."""
+    if q.device.type == "cpu":
+        return mega_project_plain(q, rs, w_p, scale, wbits=wbits, chunk=chunk, group=group,
+                                  epi=epi, resid=resid)
+    if q.device.type != "cuda":
+        raise ValueError(f"mega_project: q is on {q.device}")
+    m, k = q.shape
+    n = w_p.shape[-1]
+    plan = core_plan(n, k, chunk, m, wbits, epi, group, ranks)
+    words = (k // 8, n) if wbits == 4 else (k // 4, n)
+    scales = (k // plan.group, n) if wbits == 4 else (n,)
+    operands = [("q", q, torch.int8, (m, k)), ("rs", rs, torch.float32, (m, k // chunk)),
+                ("w_p", w_p, torch.int32, words), ("scale", scale, torch.float32, scales)]
+    if epi == "resid":
+        if resid is None:
+            raise ValueError("mega_project: the residual epilogue needs resid")
+        operands.append(("resid", resid, torch.float32, (m, n)))
+    _check_operands("mega_project", q.device, operands)
+    out = torch.empty(m, n // 2 if epi == "swiglu" else n, dtype=torch.float32,
+                      device=q.device)
+    p = _build.ptr
+    err = _build.library().mmor_mega_project(
+        p(q), p(rs), p(w_p), p(scale), p(resid) if epi == "resid" else None, p(out), m, k, n,
+        plan.group, chunk, wbits, CORE_EPILOGUES.index(epi), *plan.c_args, _build.stream())
+    _build.check(err, "mega_project")
+    mega_project.launches += 1
+    return out
+
+
+mega_project.launches = 0
+
+
+def core_plans(weights: "MegaWeights", rows: int) -> tuple[CorePlan, ...]:
+    """The four weight phases' plans of a K5 call over ``rows`` rows: qkv
+    (f32 store), o (per-head chunks, residual), gate_up (SwiGLU) and down
+    (residual)."""
+    return _core_plans(weights.norms.shape[-1], weights.ffn, weights.heads, weights.group,
+                       weights.wbits, rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _core_plans(dim: int, f: int, heads: int, ck: int, wbits: int,
+                rows: int) -> tuple[CorePlan, ...]:
+    phases = ((3 * dim, dim, ck, "store"), (dim, dim, dim // heads, "resid"),
+              (2 * f, dim, ck, "swiglu"), (dim, f, ck, "resid"))
+    return tuple(core_plan(n, k, c, rows, wbits, epi, ck) for n, k, c, epi in phases)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(dim: int, f: int, heads: int, ck: int, wbits: int, rows: int) -> ctypes.Array:
+    """The four plans' ``c_args`` as the C entry point's 32 ints (read only)."""
+    plans = _core_plans(dim, f, heads, ck, wbits, rows)
+    return (ctypes.c_int * 32)(*(v for plan in plans for v in plan.c_args))
 
 
 def _rmsnorm(x: torch.Tensor, norm: torch.Tensor, eps: float) -> torch.Tensor:
@@ -508,6 +768,8 @@ def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
                          "expected (alloc_scratch)")
     if pointer_table is None:
         pointer_table = weights.pointer_table()
+    plans = _plan_array(weights.norms.shape[-1], weights.ffn, weights.heads, weights.group,
+                        weights.wbits, rows)
     x, cos, sin = _build.aligned(x), _build.aligned(cos.float()), _build.aligned(sin.float())
     dev = dict(device=x.device)
     x_out = torch.empty(b, dim, dtype=torch.bfloat16, **dev)
@@ -531,7 +793,8 @@ def mega_decode_layers(x: torch.Tensor, weights: MegaWeights, cache: dict,
         p(cache["k_s"]), p(cache["v"]), p(cache["v_s"]), p(cache["kv_mask"]), p(cos),
         p(sin), *(p(scratch[k]) for k in ("x_res", "x2", "hq", "hrs", "qkv", "a8",
                                           "ars", "mbuf")),
-        p(x_out), p(knew), p(knew_s), p(vnew), p(vnew_s), *pf_in, *pf_out, n_layers, b,
+        p(x_out), p(knew), p(knew_s), p(vnew), p(vnew_s), *pf_in, *pf_out,
+        ctypes.addressof(plans), n_layers, b,
         dim, heads, weights.ffn, t_cap, weights.group, c, t2, weights.wbits, kvbits,
         float(eps), float(sm_scale), _build.stream())
     _build.check(err, "mega_decode_layers")

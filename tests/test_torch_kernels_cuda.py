@@ -8,7 +8,12 @@ bucket after EOS compaction, K5's piggyback-prefill rows (empty, mid and
 last chunks of the working cache, a chunk with one real column, the decode
 rows bit-identical with and without them), each K5 case at the four
 (weight, KV cache) width pairs, and a cache whose dtype does not match its
-width; K7's f32 and bf16 scales and a fully masked row, K8's stream
+width; K5's weight core alone (``mega_project``) bit for bit at the four 7B
+projections, both widths and R 1, 8, 14, 16, 17 and 136, and at ragged
+edges (N not a multiple of the strip, N % 4 != 0 by cp.async, odd chunk
+and group counts, chunks that split an int4 group, two slabs), with K
+split across a cluster of 2-5 blocks (uneven runs of units), and the plans
+it refuses; K7's f32 and bf16 scales and a fully masked row, K8's stream
 kernel at one row and at 16, its weight by TMA, by cp.async (N % 16 != 0)
 and byte by byte (N % 4 != 0), one k tile and a ragged last one, and its
 tiled kernel above 16 rows, K10a and K10b's ragged N and M above
@@ -25,7 +30,10 @@ Every test needs a CUDA device and skips without one (the kernels have no CPU mo
 Tolerances: bf16 attention rel_l2 <= 2e-2 (the kernels round the softmax
 weights to bf16 before P.V, unnormalized, where the plain version rounds
 them normalized); W8A8 and W4A8 bit-exact (same integer products, same
-epilogue order), K8 too; W8A16 (K2's, K10a, K10b) rel_l2 <= 1e-3 (f32 sums
+epilogue order), K8 too, and K5's weight core (the same exact int32 dots
+folded in the same order with the same f32 roundings as
+``_w4a8_chunks``/``_w8a8_chunks``, and the same epilogue expressions);
+W8A16 (K2's, K10a, K10b) rel_l2 <= 1e-3 (f32 sums
 in another order, one bf16 rounding; 1e-5 in f32); K7 rel_l2 <= 3e-4 (f32
 sums in another order, one rounding to the output's dtype; the kernel on
 bf16 copies of f32 scales must miss it); K5 x_out rel_l2 <= 2e-3 and its new K/V columns identical in
@@ -546,6 +554,119 @@ def test_mega_decode_kernel_refuses_cache_of_another_width(dev):
               **_kv_stacks(torch.Generator(device=dev), dev, 4, 2, 4, 128))
     with pytest.raises(ValueError, match="pf"):
         M.mega_decode_layers(x, weights, cache, cos, sin, pf=pf)
+
+
+# K5's weight core alone at the four 7B projections: (K, N, epilogue, chunk)
+CORE_7B = {"qkv": (4096, 12288, "store", 1024), "o": (4096, 4096, "resid", 128),
+           "gate_up": (4096, 22528, "swiglu", 1024), "down": (11264, 4096, "resid", 1024)}
+
+
+def _core_operands(g, dev, wbits, rows, k, n, chunk, group):
+    """Seeded activations quantized per (row, chunk) as K5's kernels do,
+    and an int4 (``group``-row scale groups) or int8 weight."""
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    if wbits == 4:
+        w_q, sc = Q.quantize_weights_int4(w, group)
+        w_p = Q.pack_int4_rows(w_q, group)
+    else:
+        w_q, sc = Q.quantize_weights(w)
+        w_p = Q.pack_int8_rows(w_q)
+    x = torch.randn(rows, k // chunk, chunk, generator=g, device=dev)
+    x[:, 0, 0] *= 40.0  # a large entry sets its chunk's scale
+    q, rs = M._quant_rows_f32(x)
+    return q.reshape(rows, k).to(torch.int8), rs[..., 0].contiguous(), w_p, sc
+
+
+def _core_check(q, rs, w_p, sc, wbits, chunk, group, epi, resid=None, ranks=None):
+    """mega_project bit for bit against its plain version; the launch counted."""
+    before = M.mega_project.launches
+    got = M.mega_project(q, rs, w_p, sc, wbits=wbits, chunk=chunk, group=group, epi=epi,
+                         resid=resid, ranks=ranks)
+    ref = M.mega_project_plain(q, rs, w_p, sc, wbits=wbits, chunk=chunk, group=group, epi=epi,
+                               resid=resid)
+    torch.cuda.synchronize()
+    assert M.mega_project.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    return got
+
+
+@pytest.mark.parametrize("wbits", [4, 8])
+@pytest.mark.parametrize("phase", list(CORE_7B))
+@pytest.mark.parametrize("rows", [1, 8, 14, 16, 17, 136])
+def test_mega_core_7b_projections(dev, wbits, phase, rows):
+    """Each 7B projection of K5's weight core bit for bit against
+    ``_w4a8_chunks`` / ``_w8a8_chunks`` and its epilogue: the gate_up
+    product as a plain f32 store over all 2F columns, then with its SwiGLU
+    epilogue; the o-projection with its per-head activation chunks."""
+    k, n, epi, chunk = CORE_7B[phase]
+    g = torch.Generator(device=dev).manual_seed(rows * 10 + wbits)
+    q, rs, w_p, sc = _core_operands(g, dev, wbits, rows, k, n, chunk, 1024)
+    resid = torch.randn(rows, n, generator=g, device=dev) if epi == "resid" else None
+    if epi == "swiglu":
+        _core_check(q, rs, w_p, sc, wbits, chunk, 1024, "store")
+    _core_check(q, rs, w_p, sc, wbits, chunk, 1024, epi, resid)
+
+
+@pytest.mark.parametrize("wbits,rows,k,n,chunk,group,epi", [
+    (4, 9, 512, 4096 + 96, 256, 256, "store"),    # N not a multiple of the 64-column strip
+    (4, 23, 768, 200, 256, 256, "swiglu"),        # F = 100: a gate box reaching into up
+    (4, 40, 1024, 36, 128, 512, "resid"),         # chunks split a group, warps split units
+    (4, 136, 1024, 100, 128, 512, "resid"),       # chunks split a group, one warp a row set
+    (4, 3, 1536, 66, 512, 512, "resid"),          # N % 4 != 0 (cp.async words), 3 groups
+    (4, 161, 512, 64, 256, 256, "store"),         # two slabs
+    (8, 17, 384, 4100, 128, None, "store"),       # 3 chunks (odd), N % 64 != 0
+    (8, 5, 640, 90, 128, None, "resid"),          # N % 4 != 0, 5 chunks
+    (8, 200, 512, 130, 256, None, "swiglu"),      # two slabs, N % 4 != 0
+    (8, 33, 1152, 4096, 384, None, "resid"),      # 3 chunks of 3 stages
+])
+def test_mega_core_ragged_edges(dev, wbits, rows, k, n, chunk, group, epi):
+    g = torch.Generator(device=dev).manual_seed(rows + k)
+    q, rs, w_p, sc = _core_operands(g, dev, wbits, rows, k, n, chunk, group)
+    resid = torch.randn(rows, n, generator=g, device=dev) if epi == "resid" else None
+    _core_check(q, rs, w_p, sc, wbits, chunk, group, epi, resid)
+
+
+@pytest.mark.parametrize("wbits,rows,k,n,chunk,group,epi,ranks", [
+    (4, 8, 4096, 4096, 128, 1024, "resid", 2),     # the 7B o-projection, 4 groups in 2 runs
+    (4, 8, 4096, 4096, 128, 1024, "resid", 4),     # a group a rank
+    (4, 8, 11264, 4096, 1024, 1024, "resid", 3),   # 7B down: 11 groups in 3 uneven runs
+    (4, 17, 3072, 4098, 1024, 1024, "store", 3),   # N % 4 != 0 (cp.async words)
+    (4, 8, 4096, 2048, 1024, 1024, "swiglu", 2),
+    (8, 8, 4096, 4096, 128, None, "resid", 2),     # the 7B o-projection
+    (8, 8, 11264, 4096, 1024, None, "resid", 3),   # 7B down
+    (8, 24, 2048, 256, 256, None, "resid", 2),     # two row sets whose warps split units
+    (8, 5, 640, 90, 128, None, "resid", 5),        # 5 units, one a rank
+])
+def test_mega_core_cluster_split(dev, wbits, rows, k, n, chunk, group, epi, ranks):
+    """K split across a cluster of ``ranks`` blocks a strip, the ranks'
+    chunk terms added by rank 0 in chunk order: bit for bit as one block."""
+    g = torch.Generator(device=dev).manual_seed(rows + k + ranks)
+    q, rs, w_p, sc = _core_operands(g, dev, wbits, rows, k, n, chunk, group)
+    resid = torch.randn(rows, n, generator=g, device=dev) if epi == "resid" else None
+    _core_check(q, rs, w_p, sc, wbits, chunk, group, epi, resid, ranks)
+
+
+def test_mega_core_refuses(dev):
+    """The wrapper raises for what the core does not take; the C entry point
+    refuses a plan it cannot run."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, rs, w_p, sc = _core_operands(g, dev, 4, 8, 1024, 64, 128, 512)
+    with pytest.raises(ValueError, match="residual"):  # chunk < group needs the residual
+        M.mega_project(q, rs, w_p, sc, wbits=4, chunk=128, group=512, epi="store")
+    with pytest.raises(ValueError, match="rs"):
+        M.mega_project(q, rs[:, :4].contiguous(), w_p, sc, wbits=4, chunk=128, group=512,
+                       epi="resid", resid=torch.zeros(8, 64, device=dev))
+    out = torch.empty(8, 64, device=dev)
+    p = _build.ptr
+    good = M.core_plan(64, 1024, 128, 8, 4, "resid", 512).c_args
+    for i, bad in ((0, 3), (3, 16), (4, 25), (1, 5), (2, 5), (5, 48), (6, 1024), (4, 3),
+                   (7, 0), (7, 3), (7, 9)):
+        plan = good[:i] + (bad,) + good[i + 1:]  # one field out of what the kernel takes
+        err = _build.library().mmor_mega_project(
+            p(q), p(rs), p(w_p), p(sc), p(out), p(out), 8, 1024, 64, 512, 128, 4, 1, *plan,
+            _build.stream())
+        assert err != 0, plan
 
 
 def _k6_args(g, dev, shapes, n, lq, m, d, dtype, spread=0.2):

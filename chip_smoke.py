@@ -12,8 +12,8 @@ Phases (each prints its lines; any failure exits non-zero):
    widths (K5-int8), and the microbenchmark kernels K10a-K10f from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
    stack frame and spills of each kernel compiled from ``mega_decode.cu``,
-   ``fused_mlp.cu`` and ``flash_attention.cu``, of K2's wgmma kernel, K8's
-   stream kernel and K10f's product;
+   ``fused_mlp.cu`` and ``flash_attention.cu``, of K2's and K3's wgmma
+   kernels, K8's stream kernel and K10f's product;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -39,7 +39,10 @@ Phases (each prints its lines; any failure exits non-zero):
    widths and depth 2 at all four (weight, KV cache) width pairs; K5-pf and
    K5-int8-pf, at (4, 4) and (8, 8) (8 decode rows, a 128-row chunk, a
    768-column working cache), each layer alone, with the decode rows
-   bit-identical to the same call without the chunk;
+   bit-identical to the same call without the chunk; K3's two branches at
+   the 7B projections, W4A8 bit for bit at M 8 and 5664, W4A16 within
+   K3_A16_BOUND at M 8, 14 and 5664 (its library ``torch.matmul`` on the
+   weight dequantized to bf16), both at ragged edges;
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
@@ -99,8 +102,19 @@ Phases (each prints its lines; any failure exits non-zero):
     in shared memory against x read from L2, launch overhead with a CUDA
     graph, int4 nibbles against int8, the row probe) and
     ``probe_mosaic_reshape`` (K10f, whose all-ones sums must equal the JAX
-    script's): their lines, their spot checks (each within its bound) and
-    the launch counts of K2, K7-K9 and K10a-K10f.
+    script's) and ``bench_prefill_matmul`` (K2's W8A8 and W8A16 and K3's
+    W4A8 and W4A16 at M 7040 x 4096 x 11264, beside bf16 ``torch.matmul``
+    and ``torch._int_mm``): their lines, their spot checks (each within its
+    bound) and the launch counts of K2, K3, K7-K9 and K10a-K10f;
+13. int4 at ``quant_int8_mxu=False``: phase 5's inputs and seeded weights
+    through MM2SG-7B ``--quantize int4`` with the LlamaConfig field off (no
+    CLI flag: ``dataclasses.replace`` before ``quantize_mega``): K3's W4A16
+    branch at prefill, K2's W8A16 lm_head, K5 decoding 300 tokens; one warm
+    and one timed call (prefill ms, decode ms/token, frames/s), K3's
+    launches by branch, the prefill's last-position logits against the same
+    model with K3's plain version (rel_l2 within a measured rounding floor,
+    the first token on clear-margin rows), and, printed only, their top-1
+    agreement with the same weights at ``quant_int8_mxu=True``.
 
 Each phase prints its wall time. The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -129,7 +143,11 @@ KERNELS = {
     "K2 int8_matmul_packed": (
         "cuda", "mmor_tpu_torch/csrc/int8_matmul.cu",
         "mmor_tpu/ops/quantized_matmul.py:187"),
+    # K3's two branches (int8_mxu on and off) are one kernel a branch
     "K3 int4_matmul_packed": (
+        "cuda", "mmor_tpu_torch/csrc/int4_matmul.cu",
+        "mmor_tpu/ops/quantized_matmul.py:371"),
+    "K3-w4a16 int4_matmul_packed(w4a16)": (
         "cuda", "mmor_tpu_torch/csrc/int4_matmul.cu",
         "mmor_tpu/ops/quantized_matmul.py:371"),
     "K4 decode_attention_packed_stack": (
@@ -203,7 +221,8 @@ KERNELS = {
 }
 # the kernels each path runs (phase 3: int8, phase 5: int4, phase 7:
 # panoptic, phase 9: overlapped int4, phase 10: int8 megakernel, phase 11:
-# overlapped int8 megakernel, phase 12: the perf tools)
+# overlapped int8 megakernel, phase 12: the perf tools, phase 13: int4 at
+# quant_int8_mxu=False)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
@@ -221,7 +240,10 @@ PATH_KERNELS = {
              "K9 fused_o_mlp", "K10a w8a16_matmul", "K10b wp_matmul",
              "K10c w8b_matmul(bf16)", "K10c w8b_matmul(mxu8)", "K10d dma_gather",
              "K10e xread_matmul(stack)", "K10e xread_matmul(dslice)", "K10e tiny",
-             "K10e nibble_matmul", "K10e rowrw", "K10f reshape_copy", "K10f st_product"),
+             "K10e nibble_matmul", "K10e rowrw", "K10f reshape_copy", "K10f st_product",
+             "K3 int4_matmul_packed", "K3-w4a16 int4_matmul_packed(w4a16)"),
+    "int4a16": ("K1 flash_attention", "K2 int8_matmul_packed",
+                "K3-w4a16 int4_matmul_packed(w4a16)", "K5 mega_decode_layers"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -267,6 +289,16 @@ K6_BOUND = {"bf16": 1e-3, "f32": 1e-6}
 # output, so the bound sits between the two, and a control run of the kernel
 # on bf16 copies of the f32 scales must land above it.
 K7_BOUND = 3e-4
+# K3's 7B projections (qkv, o, gate_up with the ffn padded to 11264, down)
+K3_SHAPES = ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096))
+# K3's W4A16 branch against its plain version (the JAX CPU path: f32
+# dequantization, then x @ w): the kernel sums exact bf16 products in f32
+# on the tensor cores, a group at a time times its scale, and rounds once
+# to bf16, so bf16 outputs differ where the two f32 sums fall on either side
+# of a rounding boundary (measured on an H100: rel_l2 1.5e-7 to 4.7e-5);
+# f32 x is rounded to bf16 first, as the TPU kernel does (measured 1.7e-3,
+# 2^-9 relative a value)
+K3_A16_BOUND = {"bf16": 1e-3, "f32": 5e-3}
 # K9 against its plain version: both take the same bf16 operands and f32
 # products, summed in another order, and round h and m to bf16 once, so an
 # h or m entry at a near-tie can come out one bf16 step apart and carry that
@@ -373,9 +405,10 @@ def probe_modules():
 
 
 def _counters() -> dict:
-    """Each kernel's launch count: (wrapper, attribute). K5's wrapper counts
-    its launches with pf rows (K5-pf) apart from those without, and those at
-    an int8 width (K5-int8) apart from the int4 ones; K10c's its mxu8 mode
+    """Each kernel's launch count: (wrapper, attribute). K3's wrapper counts
+    its W4A16 launches apart from its W4A8 ones; K5's its launches with pf
+    rows (K5-pf) apart from those without, and those at an int8 width
+    (K5-int8) apart from the int4 ones; K10c's its mxu8 mode
     apart from its bf16 mode; K10e's x-read its 2-D x (line c) apart from its
     tile stack (line b)."""
     from mmor_tpu_torch.ops import fused_mlp
@@ -386,6 +419,7 @@ def _counters() -> dict:
     return {"K1 flash_attention": (A.flash_attention, "launches"),
             "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
             "K3 int4_matmul_packed": (Q.int4_matmul_packed, "launches"),
+            "K3-w4a16 int4_matmul_packed(w4a16)": (Q.int4_matmul_packed, "a16_launches"),
             "K4 decode_attention_packed_stack": (A.decode_attention_packed_stack,
                                                  "launches"),
             "K5 mega_decode_layers": (M.mega_decode_layers, "launches"),
@@ -420,6 +454,18 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
 
 
+def perturbed(out, gen):
+    """``out`` times (1 + u * 2**-8), u uniform in [-1, 1] from ``gen``: a
+    rounding-sized change of one call's output (``out`` itself without a
+    generator)."""
+    import torch
+
+    if gen is None:
+        return out
+    u = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+    return (out.float() * (1 + u * 2.0 ** -8)).to(out.dtype)
+
+
 @contextlib.contextmanager
 def plain_versions(perturb=None):
     """Route the models' kernel calls to the plain PyTorch versions (the
@@ -430,8 +476,6 @@ def plain_versions(perturb=None):
     (1 + u * 2**-8), u uniform in [-1, 1]: a rounding-sized change of each
     call, which measures how far such changes alone move the outputs of
     this randomly initialised model."""
-    import torch
-
     from mmor_tpu_torch.ops.deformable_attention import ms_deform_attn
 
     A, Q, M, D = kernel_modules()
@@ -440,28 +484,37 @@ def plain_versions(perturb=None):
              D.ms_deform_attn_sampler)
     reference, mega_attention = A.mha_reference, M._attention_plain
 
-    def perturbed(out):
-        if perturb is None:
-            return out
-        u = torch.rand(out.shape, generator=perturb, device=out.device) * 2 - 1
-        return (out.float() * (1 + u * 2.0 ** -8)).to(out.dtype)
-
     def mega_plain(*args, scratch=None, pointer_table=None, **kwargs):
         return M.mega_decode_layers_plain(*args, **kwargs)
 
-    A.flash_attention = lambda *a, **kw: perturbed(reference(*a, **kw))
+    A.flash_attention = lambda *a, **kw: perturbed(reference(*a, **kw), perturb)
     A.decode_attention_packed_stack = A.decode_attention_packed_stack_plain
     Q.int8_matmul_packed = Q.int8_matmul_packed_plain
     Q.int4_matmul_packed = Q.int4_matmul_packed_plain
     M.mega_decode_layers = mega_plain
-    M._attention_plain = lambda *a: perturbed(mega_attention(*a))
-    D.ms_deform_attn_sampler = lambda *a: perturbed(ms_deform_attn(*a))
+    M._attention_plain = lambda *a: perturbed(mega_attention(*a), perturb)
+    D.ms_deform_attn_sampler = lambda *a: perturbed(ms_deform_attn(*a), perturb)
     try:
         yield
     finally:
         (A.flash_attention, A.decode_attention_packed_stack, Q.int8_matmul_packed,
          Q.int4_matmul_packed, M.mega_decode_layers, M._attention_plain,
          D.ms_deform_attn_sampler) = saved
+
+
+@contextlib.contextmanager
+def plain_k3(perturb=None):
+    """Route the models' K3 calls to its plain version, the other kernels
+    as they are; with a ``torch.Generator`` as ``perturb``, every K3 output
+    is also ``perturbed``."""
+    Q = kernel_modules()[1]
+    kernel = Q.int4_matmul_packed
+    Q.int4_matmul_packed = lambda *a, **kw: perturbed(Q.int4_matmul_packed_plain(*a, **kw),
+                                                       perturb)
+    try:
+        yield
+    finally:
+        Q.int4_matmul_packed = kernel
 
 
 @contextlib.contextmanager
@@ -916,7 +969,7 @@ def kernel_cases(dev):
     # K3 at the int4 path's prefill rows (M=8x708) and at decode rows over
     # the fused projections: qkv, o, gate_up (ffn padded to 11264), down
     for m in (8, 5664):
-        for kdim, n in ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096)):
+        for kdim, n in K3_SHAPES:
             x = randn(m, kdim)
             w_q, scale = Q.quantize_weights_int4(
                 torch.randn(kdim, n, generator=g, device=dev) * 0.02, 1024)
@@ -927,7 +980,7 @@ def kernel_cases(dev):
                 lambda x=x, w_p=w_p, s=scale: Q.int4_matmul_packed_plain(x, w_p, s),
                 1e-3, 10 if m == 8 else 3, m == 5664,
                 m * kdim * 2 + kdim * n // 2 + (kdim // 1024) * n * 4 + m * n * 2,
-                {"int8": 2.0 * m * kdim * n}))
+                {"int8": 2.0 * m * kdim * n}, exact=True))
 
     # K4: B=8, H=32, D=128, T=1008, a partly masked cache, layer 17 of 32
     L, B, H, T, D = 32, 8, 32, 1008, 128
@@ -960,6 +1013,7 @@ def kernel_cases(dev):
     for wbits, kvbits in ((4, 8), (8, 4)):
         cases.extend(_k5_cases(dev, g8, wbits, kvbits, with_pf=False, on_path=False))
     cases.extend(_perf_cases(dev))
+    cases.extend(_k3_a16_cases(dev))
     cases.extend(_tail_gather_cases(dev))
     cases.extend(_probe_cases(dev))
     # last, so that every case before it meets the card as it did before
@@ -1045,6 +1099,66 @@ def _edge_cases(dev):
             lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s),
             1e-3, 3, False, m * kdim * x.element_size() + kdim * n + n * 4
             + m * n * x.element_size(), {"int8": 2.0 * m * kdim * n}, exact=True))
+    return cases
+
+
+def _k3_a16_cases(dev):
+    """K3's W4A16 branch (``int8_mxu=False``) at decode rows (M 8 and 14,
+    off every path: phase 13 decodes through K5) and at phase 13's prefill
+    rows (M 8 x 708) over the four 7B projections in 1024-row groups,
+    within K3_A16_BOUND of its plain version (the JAX CPU path); the bound
+    is the bf16 operations, the library one ``torch.matmul`` of x and the
+    weight dequantized to bf16 (the dequantization not timed); then K3's
+    two branches off the serving shapes: one row past the decode kernels
+    with N % 4 != 0 (cp.async words), 8 groups of 256 with N off the
+    128-column tiles, and f32 x. Inputs from a generator of their own."""
+    import torch
+
+    Q = kernel_modules()[1]
+    g = torch.Generator(device=dev).manual_seed(12)
+    cases = []
+    for m in (8, 14, 5664):
+        for kdim, n in K3_SHAPES:
+            x = torch.randn(m, kdim, generator=g, device=dev).to(torch.bfloat16)
+            w_q, scale = Q.quantize_weights_int4(
+                torch.randn(kdim, n, generator=g, device=dev) * 0.02, 1024)
+            w_p = Q.pack_int4_rows(w_q, 1024)
+            w_bf = (w_q.float().reshape(kdim // 1024, 1024, n) * scale[:, None, :]).reshape(
+                kdim, n).to(torch.bfloat16)
+            cases.append(Case(
+                "K3-w4a16 int4_matmul_packed(w4a16)",
+                f"w4a16 M={m} K={kdim} N={n} library=torch.matmul(x,dequantized_bf16_w)",
+                lambda x=x, w_p=w_p, s=scale: Q.int4_matmul_packed(x, w_p, s, int8_mxu=False),
+                lambda x=x, w_p=w_p, s=scale: Q.int4_matmul_packed_plain(x, w_p, s,
+                                                                         int8_mxu=False),
+                K3_A16_BOUND["bf16"], 10 if m < 16 else 3, m == 5664,
+                m * kdim * 2 + kdim * n // 2 + (kdim // 1024) * n * 4 + m * n * 2,
+                {"bf16": 2.0 * m * kdim * n},
+                library=lambda x=x, w_bf=w_bf: torch.matmul(x, w_bf)))
+    for m, kdim, n, group, dtype in ((17, 512, 130, 256, torch.bfloat16),
+                                     (300, 2048, 4100, 256, torch.bfloat16),
+                                     (300, 1024, 256, 1024, torch.float32)):
+        x = torch.randn(m, kdim, generator=g, device=dev).to(dtype)
+        w_q, scale = Q.quantize_weights_int4(
+            torch.randn(kdim, n, generator=g, device=dev) * 0.02, group)
+        w_p = Q.pack_int4_rows(w_q, group)
+        nbytes = (m * kdim * x.element_size() + kdim * n // 2 + (kdim // group) * n * 4
+                  + m * n * x.element_size())
+        what = f"M={m} K={kdim} N={n} group={group} {str(dtype)[6:]}"
+        cases.append(Case(
+            "K3 int4_matmul_packed", f"edge w4a8 {what}",
+            lambda x=x, w_p=w_p, s=scale, gr=group: Q.int4_matmul_packed(x, w_p, s, group=gr),
+            lambda x=x, w_p=w_p, s=scale, gr=group: Q.int4_matmul_packed_plain(x, w_p, s,
+                                                                               group=gr),
+            1e-3, 3, False, nbytes, {"int8": 2.0 * m * kdim * n}, exact=True))
+        cases.append(Case(
+            "K3-w4a16 int4_matmul_packed(w4a16)", f"edge w4a16 {what}",
+            lambda x=x, w_p=w_p, s=scale, gr=group: Q.int4_matmul_packed(
+                x, w_p, s, group=gr, int8_mxu=False),
+            lambda x=x, w_p=w_p, s=scale, gr=group: Q.int4_matmul_packed_plain(
+                x, w_p, s, group=gr, int8_mxu=False),
+            K3_A16_BOUND["bf16" if dtype == torch.bfloat16 else "f32"], 3, False, nbytes,
+            {"bf16": 2.0 * m * kdim * n}))
     return cases
 
 
@@ -2335,6 +2449,126 @@ def phase_overlap(dev, predictor=None, widths=(4, 4), phase: str = "9 overlap",
     return counts
 
 
+# --------------------------------------------------------------- phase 13
+def phase_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
+                   prompt_len: int = PROMPT_LEN, new_tokens: int = NEW_TOKENS,
+                   phase: str = "13 int4-w4a16") -> dict:
+    """MM2SG-7B ``--quantize int4`` at ``quant_int8_mxu=False`` (no CLI flag,
+    in JAX or here: the LlamaConfig field, set with ``dataclasses.replace``
+    before ``quantize_mega``, which keeps it) through ``generate_stepwise``
+    on phase 5's inputs and seeded weights: K3's W4A16 branch at prefill,
+    K2's W8A16 lm_head, K5 decoding (it quantizes its activations whatever
+    the flag says, as JAX's does). One warm call and one timed call; the
+    prefill's last-position logits against the same model with K3 swapped
+    for its plain version, within LOGITS_FLOOR_FACTOR times the spread that
+    a rounding step of each K3 output causes, and the first token on every
+    row whose top-2 margin exceeds twice the largest logit difference; the
+    top-1 agreement with the same weights at ``quant_int8_mxu=True`` (phase
+    5's W4A8 model) is printed, not gated: the two numerics differ by
+    design. Returns the path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from mmor_tpu_torch.cli.common import build_predictor, quantize_mega
+    from mmor_tpu_torch.inference import ByteTokenizer, SceneGraphPredictor
+    from mmor_tpu_torch.models.llama import QuantDense
+    from mmor_tpu_torch.models.mm2sg import generate_stepwise, make_prefill
+    from mmor_tpu_torch.ops import mega_decode as M
+
+    t0 = time.perf_counter()
+    model = build_predictor(preset_name, ByteTokenizer(), None, device=dev, seed=0).model
+    model.cfg = dataclasses.replace(
+        model.cfg, llama=dataclasses.replace(model.cfg.llama, quant_int8_mxu=False))
+    model = quantize_mega(model, 4, 4).eval()
+    predictor = SceneGraphPredictor(cfg=model.cfg, model=model, tokenizer=ByteTokenizer(),
+                                    device=dev)
+    lc, server = model.cfg.llama, predictor._step
+    data = left_padded_batch(model.cfg, batch, prompt_len, dev)
+    sync(dev)
+    say(phase, step="setup", preset=preset_name, seconds=f"{time.perf_counter() - t0:.2f}",
+        weight_bits=lc.weight_bits, weight_group=lc.weight_group, kv_bits=lc.kv_bits,
+        mega_decode=lc.mega_decode, quant_int8_mxu=lc.quant_int8_mxu, new_tokens=new_tokens)
+    check(not lc.quant_int8_mxu and lc.mega_decode and (lc.weight_bits, lc.kv_bits) == (4, 4)
+          and isinstance(server, M.MegaServer), "not the int4 W4A16 config")
+
+    cache_len = predictor._cache_len_for(prompt_len)
+    cfg_run = dict(max_cache_len=cache_len, max_new_tokens=new_tokens, eos_token_id=-1)
+    prefill = make_prefill(model, max_cache_len=cache_len)
+    prefill_s: list[float] = []
+
+    def timed_prefill(b, bufs):
+        sync(dev)
+        t = time.perf_counter()
+        out = prefill(b, bufs)
+        sync(dev)
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    reset_launch_counts()
+    tokens, bufs = generate_stepwise(model, data, prefill_fn=timed_prefill, step_fn=server,
+                                     **cfg_run)  # warm
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t = time.perf_counter()
+    tokens, bufs = generate_stepwise(model, data, prefill_fn=timed_prefill, step_fn=server,
+                                     cache_buffers=bufs, **cfg_run)
+    sync(dev)
+    total = time.perf_counter() - t
+    decode_ms = (total - prefill_s[-1]) * 1e3 / (new_tokens - 1)
+    say(phase, step="run", frames_per_s=f"{batch / total:.4f}", total_s=f"{total:.4f}",
+        prefill_ms=f"{prefill_s[-1] * 1e3:.2f}", decode_ms_per_token=f"{decode_ms:.3f}",
+        cache_len=cache_len,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+    all_counts = launch_counts()
+    counts = {k: v for k, v in all_counts.items() if k in PATH_KERNELS["int4a16"]}
+    say(phase, step="launches", tokens="x".join(map(str, tokens.shape)),
+        k3_w4a8=all_counts["K3 int4_matmul_packed"],
+        **{k.split()[0]: v for k, v in counts.items()})
+    for name, n in counts.items():
+        check(dev.type != "cuda" or n > 0, f"{name} was not launched on the int4a16 path")
+    check(all_counts["K3 int4_matmul_packed"] == 0, "K3's W4A8 branch ran at int8_mxu=False")
+    check(tokens.shape == (batch, new_tokens), f"tokens {tokens.shape}")
+    check(bool(((tokens >= 0) & (tokens < lc.vocab_size)).all()), "token ids out of range")
+
+    # the prefill with K3 against the same prefill with K3's plain version,
+    # and the plain one against itself with each K3 output moved by a
+    # rounding step (the spread that rounding alone causes in this model)
+    logits_k = prefill(data, bufs)[0][:, -1].float()
+    with plain_k3():
+        logits_p = prefill(data, bufs)[0][:, -1].float()
+    with plain_k3(perturb=torch.Generator(device=dev).manual_seed(1)):
+        logits_n = prefill(data, bufs)[0][:, -1].float()
+    err, floor = rel_l2(logits_k, logits_p), rel_l2(logits_n, logits_p)
+    bound = LOGITS_FLOOR_FACTOR * floor
+    diff = (logits_k - logits_p).abs().amax(dim=-1)
+    top2 = logits_p.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * diff  # rows whose argmax cannot flip
+    agree = logits_k.argmax(-1) == logits_p.argmax(-1)
+    # the same weights at quant_int8_mxu=True: every QuantDense (K3's
+    # projections, K2's lm_head) takes its int8-activation branch
+    dense = [mod for mod in model.modules() if isinstance(mod, QuantDense)]
+    for mod in dense:
+        mod.int8_mxu = True
+    try:
+        logits_8 = prefill(data, bufs)[0][:, -1].float()
+    finally:
+        for mod in dense:
+            mod.int8_mxu = False
+    agree8 = logits_k.argmax(-1) == logits_8.argmax(-1)
+    say(phase, step="k3-vs-plain-prefill", logits_rel_l2=f"{err:.3e}",
+        rounding_floor_rel_l2=f"{floor:.3e}", bound=f"{bound:.3e}",
+        first_token_agree=f"{int(agree.sum())}/{batch}", clear_margin_rows=int(clear.sum()),
+        finite=bool(torch.isfinite(logits_k).all()),
+        w4a8_first_token_agree=f"{int(agree8.sum())}/{batch}",
+        w4a8_logits_rel_l2=f"{rel_l2(logits_k, logits_8):.3e}")
+    check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
+    check(err <= bound, f"prefill logits rel_l2 {err:.3e} > {bound:.3e}")
+    check(bool(agree[clear].all()), "first token differs on a row with a clear margin")
+    return counts
+
+
 # --------------------------------------------------------------- phase 12
 def phase_perf_tools(dev) -> dict:
     """The port's ``tools/perf`` microbenchmarks at their default sizes, each
@@ -2347,8 +2581,8 @@ def phase_perf_tools(dev) -> dict:
 
     from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_decode_parts, bench_dma_gather,
                                            bench_fused_mlp, bench_megakernel_probe,
-                                           bench_packed, bench_stream, bench_w8a16,
-                                           probe_mosaic_reshape)
+                                           bench_packed, bench_prefill_matmul, bench_stream,
+                                           bench_w8a16, probe_mosaic_reshape)
 
     reset_launch_counts()
     for name, main in (("bench_stream", bench_stream.main),
@@ -2364,7 +2598,8 @@ def phase_perf_tools(dev) -> dict:
                        *((f"bench_megakernel_probe:{part}",
                           functools.partial(bench_megakernel_probe.main, part=part))
                          for part in bench_megakernel_probe.PARTS),
-                       ("probe_mosaic_reshape", probe_mosaic_reshape.main)):
+                       ("probe_mosaic_reshape", probe_mosaic_reshape.main),
+                       ("bench_prefill_matmul", bench_prefill_matmul.main)):
         t = time.perf_counter()
         try:
             result = main()
@@ -2405,7 +2640,8 @@ def nvcc_report(log: str) -> list[dict]:
     instantiations and the W4A8/W8A8 cores), ``fused_mlp.cu`` (K9, whose
     registers set its cooperative grid), ``flash_attention.cu`` (K1, one
     kernel a head dim), ``int8_matmul.cu``'s wgmma and stream kernels (K2 at
-    M > 16, K8 at M <= 16) and ``reshape_probe.cu``'s product (K10f), one
+    M > 16, K8 at M <= 16), ``int4_matmul.cu``'s wgmma kernels (K3 at M >
+    16, both branches) and ``reshape_probe.cu``'s product (K10f), one
     dict a kernel, under the kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
@@ -2424,6 +2660,7 @@ def nvcc_report(log: str) -> list[dict]:
             if (source.endswith(("mega_decode.cu", "fused_mlp.cu", "flash_attention.cu"))
                     or (source.endswith("int8_matmul.cu")
                         and ("s8_wgmma" in name or "s8_stream" in name))
+                    or (source.endswith("int4_matmul.cu") and "wgmma" in name)
                     or (source.endswith("reshape_probe.cu") and "product" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
@@ -2442,7 +2679,7 @@ def nvcc_report(log: str) -> list[dict]:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="phases 3, 5, 7, 9, 10 and 11 also write per-kernel device time "
@@ -2510,6 +2747,7 @@ def main(argv=None) -> int:
         11: ("overlap8", lambda: phase_overlap(dev, int8_predictor(), (8, 8), "11 overlap8",
                                                "overlap8", profile_dir=prof)),
         12: ("perf", lambda: phase_perf_tools(dev)),
+        13: ("int4a16", lambda: phase_a16_path(dev)),
     }
     t_start = time.perf_counter()
     try:

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the flash attention kernel (K1,
 // flash_attention.cu), the W8A8 products (K2's prefill and K8's skinny
-// kernel, int8_matmul.cu) and K10f's product (reshape_probe.cu): mbarriers,
+// kernel, int8_matmul.cu), K3's prefill product (int4_matmul.cu) and
+// K10f's product (reshape_probe.cu): mbarriers,
 // TMA tile loads and the host-side tensor maps they read, cp.async (with an
 // mbarrier arrival, or in commit groups), the warpgroup matrix product
 // (wgmma) with its shared-memory descriptors, and register reallocation
@@ -164,6 +165,26 @@ __device__ __forceinline__ void regs_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
+// ------------------------------------------- device: packed weight word boxes
+// K2's and K3's wgmma kernels take a block's weight words as 32-column boxes
+// of 4-byte words (128 bytes a word row) in TMA's 128-byte swizzle, and read
+// them as the A fragments of wgmma, a fragment row being a weight column.
+namespace wbox {
+constexpr int kCols = 32;  // weight columns a box
+// word (r, c) of a box: the 16-byte chunk of column c moved by word row r
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kCols + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+// The column (within its box) of A-fragment row j (0-15) of warp `warp`: the
+// rows take the columns whose 16-byte chunks, swizzled by the word rows t4
+// and t4 + 4 (or any four consecutive word rows) that the lanes read, fall
+// in distinct banks.
+__device__ __forceinline__ int col(int warp, int j) {
+  const int chunk = (warp & 1) * 2 + (j >> 3) + 4 * ((j >> 2) & 1);
+  return chunk * 4 + (j & 3);
+}
+}  // namespace wbox
+
 // ------------------------------------------------------ device: wgmma
 // Shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B, 3: 32 B).
@@ -294,8 +315,9 @@ __device__ __forceinline__ void wgmma_rs_bf16_n64(float (&d)[32], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 128, f32) {+}= A (64 x 16, bf16 registers) B (16 x 128, bf16), B MN-major
-// (transposed) in shared memory
+// D (64 x 128, f32) {+}= A (64 x 16, bf16 registers) B (16 x 128, bf16), B in shared
+// memory MN-major (transposed, kTransB 1) or K-major (kTransB 0)
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
                                        uint64_t db, int accumulate) {
   asm volatile(
@@ -311,7 +333,7 @@ __device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], const uint32_
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -323,6 +345,37 @@ __device__ __forceinline__ void wgmma_rs_bf16_n128(float (&d)[64], const uint32_
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+
+// D (64 x 128, s32) {+}= A (64 x 32, s8 registers) B (32 x 128, s8), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_s8_n128(int (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -51,7 +51,7 @@
 //    columns, four boxes of 32) in the 128-byte swizzle, so that wgmma
 //    reads the activations as they land and a consumer's 32-bit loads of
 //    its A fragments hit 32 distinct banks: the columns are assigned to the
-//    fragment's rows in the order that makes them so (wg_col). Where
+//    fragment's rows in the order that makes them so (wbox::col). Where
 //    N % 4 != 0, which TMA's 16-byte row strides cannot describe, warp 0
 //    copies the words by cp.async instead. Full and empty mbarriers pace
 //    the ring; a consumer keeps one tile's products in flight while it
@@ -619,7 +619,7 @@ constexpr int kRows = 256;          // activation rows a block: the wgmma's N
 constexpr int kTileK = 128;         // k a stage: 128 bytes of a row, 32 word rows
 constexpr int kWordRows = kTileK / 4;
 constexpr int kStages = 4;
-constexpr int kBox = 32;            // weight columns a 128-byte swizzled box
+constexpr int kBox = wbox::kCols;   // weight columns a 128-byte swizzled box
 constexpr int kBoxBytes = kWordRows * kBox * 4;      // 4 KB
 constexpr int kXBytes = kRows * kTileK;              // 32 KB
 constexpr int kWBytes = kCols / kBox * kBoxBytes;    // 16 KB
@@ -628,17 +628,7 @@ constexpr int kThreads = 256;       // two consumer warpgroups; warp 0 also load
 constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 static_assert(kRows * (kCols + 4) * 4 <= kStages * kStageBytes, "epilogue tile");
 
-// The weight column (within its 32-column box) of A-fragment row j (0-15) of
-// warp `warp`: the rows take the columns whose 16-byte chunks, swizzled by
-// the word rows t4 and t4 + 4 the lanes read, fall in 32 distinct banks.
-__device__ __forceinline__ int wg_col(int warp, int j) {
-  const int chunk = (warp & 1) * 2 + (j >> 3) + 4 * ((j >> 2) & 1);
-  return chunk * 4 + (j & 3);
-}
-// word (r, c) of a 32 x 32 box in the 128-byte swizzle
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kBox + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
-}
+using wbox::swz;  // a word's place in a 32 x 32 box (hopper.cuh)
 }  // namespace wg
 
 // w_map is the weight's (N, K/4) int32 map, boxes of 32 x 32 words in the
@@ -708,7 +698,7 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int warp = (threadIdx.x / 32) % 4;
   const int g = lane / 4, t4 = lane % 4;
   const int box = cw * 2 + (warp >> 1);  // this warp's 32-column box
-  const int c_lo = wg_col(warp, g), c_hi = wg_col(warp, g + 8);
+  const int c_lo = wbox::col(warp, g), c_hi = wbox::col(warp, g + 8);
   int acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0;
@@ -784,7 +774,7 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   float csc[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    cls[h] = cw * 64 + (warp >> 1) * 32 + wg_col(warp, g + 8 * h);
+    cls[h] = cw * 64 + (warp >> 1) * 32 + wbox::col(warp, g + 8 * h);
     csc[h] = n0 + cls[h] < n ? scale[n0 + cls[h]] : 0.f;
   }
 #pragma unroll

@@ -40,7 +40,7 @@ SIGNATURES = {
     "mmor_int8_matmul_w8a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmor_int8_matmul_bytes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmor_int8_matmul_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mmor_int4_matmul_w4a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mmor_int4_matmul": (_P,) * 6 + (_I,) * 6 + (_P,),
     "mmor_mega_decode": (_P,) * 38 + (_I,) * 11 + (_F, _F, _P),
     "mmor_mega_project": (_P,) * 6 + (_I,) * 15 + (_P,),
     "mmor_ms_deform_attn": (_P,) * 5 + (_I,) * 8 + (_P,),

@@ -9,7 +9,8 @@ kernels read the words as tensor-core operands:
 - int8 unpacked: the same scales on a row-major (K, N) int8 weight; K8
   (``int8_matmul``), the same file, with its own activation rule;
 - int4: values in [-7, 7] with per-(K-group, channel) f32 scales, 8 biased
-  nibbles per int32 word (``pack_int4_rows``); K3, ``csrc/int4_matmul.cu``.
+  nibbles per int32 word (``pack_int4_rows``); K3, ``csrc/int4_matmul.cu``,
+  W4A8 or W4A16.
 """
 
 from __future__ import annotations
@@ -266,9 +267,12 @@ def int4_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     channel) ``scale`` (K/group, N) f32 -> (M, N) in x.dtype.
 
     CPU: ``int4_matmul_packed_plain``. CUDA: the ``csrc/int4_matmul.cu``
-    kernels (K2's row quantization, then W4A8 on the int8 tensor cores) for
-    ``int8_mxu``; the W4A16 variant has no kernel and raises. Counts its
-    launches in ``int4_matmul_packed.launches``."""
+    kernels (bf16 or f32 x; K and group multiples of 256): with
+    ``int8_mxu``, W4A8, K2's row quantization and then the int8 tensor cores
+    (``mma.sync`` at up to 16 rows, ``wgmma`` fed by TMA above); otherwise
+    W4A16, x in bf16 (f32 x rounded by a pre-pass) on the bf16 tensor cores
+    with the nibbles converted in registers. Counts its launches in
+    ``int4_matmul_packed.launches`` (W4A8) and ``.a16_launches`` (W4A16)."""
     m, k = x.shape
     kp, n = w_p.shape
     if kp * 8 != k or k % group or tuple(scale.shape) != (k // group, n):
@@ -278,9 +282,6 @@ def int4_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
         return int4_matmul_packed_plain(x, w_p, scale, group=group, int8_mxu=int8_mxu)
     if x.device.type != "cuda" or w_p.device != x.device or scale.device != x.device:
         raise ValueError("int4_matmul_packed: operands must share one CUDA device")
-    if not int8_mxu:
-        raise NotImplementedError("int4_matmul_packed: W4A16 (int8_mxu=False) has "
-                                  "no CUDA kernel; serving runs W4A8")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int4_matmul_packed: x dtype {x.dtype}")
     if w_p.dtype != torch.int32 or scale.dtype != torch.float32:
@@ -291,15 +292,25 @@ def int4_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     lib = _build.library()
     xc, w_p, scale = _build.aligned(x), _build.aligned(w_p), _build.aligned(scale)
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    xq = torch.empty(m, k, dtype=torch.int8, device=x.device)
-    rs = torch.empty(m, dtype=torch.float32, device=x.device)
-    err = lib.mmor_int4_matmul_w4a8(
-        _build.ptr(xc), _build.ptr(xq), _build.ptr(rs), _build.ptr(w_p),
-        _build.ptr(scale), _build.ptr(out), m, k, n, group,
-        int(x.dtype == torch.bfloat16), _build.stream())
+    # scratch: W4A8's quantized rows and row scales; W4A16's bf16 copy of f32 x
+    xs = rs = None
+    if int8_mxu:
+        xs = torch.empty(m, k, dtype=torch.int8, device=x.device)
+        rs = torch.empty(m, dtype=torch.float32, device=x.device)
+    elif x.dtype == torch.float32:
+        xs = torch.empty(m, k, dtype=torch.bfloat16, device=x.device)
+    err = lib.mmor_int4_matmul(
+        _build.ptr(xc), None if xs is None else _build.ptr(xs),
+        None if rs is None else _build.ptr(rs), _build.ptr(w_p), _build.ptr(scale),
+        _build.ptr(out), m, k, n, group, int(x.dtype == torch.bfloat16), int(int8_mxu),
+        _build.stream())
     _build.check(err, "int4_matmul_packed")
-    int4_matmul_packed.launches += 1
+    if int8_mxu:
+        int4_matmul_packed.launches += 1
+    else:
+        int4_matmul_packed.a16_launches += 1
     return out
 
 
 int4_matmul_packed.launches = 0
+int4_matmul_packed.a16_launches = 0

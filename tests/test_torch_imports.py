@@ -49,6 +49,7 @@ def test_port_imports_no_jax():
     assert "mmor_tpu_torch.ops.mega_overlap" in modules
     assert "mmor_tpu_torch.tools.perf.bench_megakernel_probe" in modules
     assert "mmor_tpu_torch.tools.perf.probe_mosaic_reshape" in modules
+    assert "mmor_tpu_torch.tools.perf.bench_prefill_matmul" in modules
     _assert_imports_clean(modules)
 
 

@@ -55,7 +55,8 @@ from mmor_tpu_torch.ops import attention as tattn
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
 from mmor_tpu_torch.tools.perf import (bench_bitcast, bench_decode_parts, bench_dma_gather,
                                        bench_fused_mlp, bench_megakernel_probe, bench_packed,
-                                       bench_stream, bench_w8a16, probe_mosaic_reshape)
+                                       bench_prefill_matmul, bench_stream, bench_w8a16,
+                                       probe_mosaic_reshape)
 from tools.perf import bench_bitcast as jbitcast
 from tools.perf import bench_dma_gather as jdma
 from tools.perf import bench_packed as jpacked
@@ -432,6 +433,9 @@ BENCHES = {
             ("rowrw", ("rowrw_static", "rowrw_dyn")))},
     "probe_mosaic_reshape": (lambda: probe_mosaic_reshape.main("cpu", repeats=1),
                              ("a.", "b.", "c.", "d.", "e.")),
+    "bench_prefill_matmul": (
+        lambda: bench_prefill_matmul.main("cpu", m=20, k=512, n=128, group=256, repeats=1),
+        ("torch_bf16", "k2_w8a8", "k2_w8a16", "k3_w4a8", "k3_w4a16", "torch_int8")),
 }
 
 
@@ -452,6 +456,7 @@ def test_benches_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for main in (bench_stream.main, bench_bitcast.main, bench_dma_gather.main,
-                 bench_fused_mlp.main, bench_megakernel_probe.main, probe_mosaic_reshape.main):
+                 bench_fused_mlp.main, bench_megakernel_probe.main, probe_mosaic_reshape.main,
+                 bench_prefill_matmul.main):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             main()

@@ -12,8 +12,8 @@ Phases (each prints its lines; any failure exits non-zero):
    widths (K5-int8), and the microbenchmark kernels K10a-K10f from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
    stack frame and spills of each kernel compiled from ``mega_decode.cu``,
-   ``fused_mlp.cu`` and ``flash_attention.cu``, of K2's and K3's wgmma
-   kernels, K8's stream kernel and K10f's product;
+   ``fused_mlp.cu``, ``flash_attention.cu`` and ``decode_attention.cu``, of
+   K2's and K3's wgmma kernels, K8's stream kernel and K10f's product;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -35,7 +35,12 @@ Phases (each prints its lines; any failure exits non-zero):
    (x-read with int8 x bit for bit at both x layouts, with bf16 x within one
    bf16 step, tiny bit for bit, nibble within one bf16 step, the row probe's
    acc within PROBE_BOUND and its rows within one bf16 step) and K10f (copies
-   bit for bit, products within PROBE_BOUND) at their scripts' shapes; K5 at 7B
+   bit for bit, products within PROBE_BOUND) at their scripts' shapes; K2's
+   W8A16 branch within K2_A16_BOUND at phase 14's projections (M 8 and
+   5664) and the lm_head (M 8), its library ``torch.matmul`` on the weight
+   dequantized to bf16, and at ragged edges; K4 and K7 at the edges of
+   their clusters' ranks (8 ranks, T off a rank's span, rows of one valid
+   position or none, head dims 16 to 256); K5 at 7B
    widths and depth 2 at all four (weight, KV cache) width pairs; K5-pf and
    K5-int8-pf, at (4, 4) and (8, 8) (8 decode rows, a 128-row chunk, a
    768-column working cache), each layer alone, with the decode rows
@@ -46,8 +51,10 @@ Phases (each prints its lines; any failure exits non-zero):
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
-   and K4 over those runs, and the prefill's next-token logits with the
-   kernels against the same prefill with the plain versions;
+   and K4 over those runs, a profiled window of decode steps (launches a
+   step, the device's busy share, K4's device time a step), and the
+   prefill's next-token logits with the kernels against the same prefill
+   with the plain versions;
 4. CLI: ``mmor_tpu_torch.cli.evaluate_sg`` on a synthetic dataset with
    ``--quantize int8`` (predictor, raw point clouds through PTv3, F1 report);
 5. int4 path: the same inputs through MM2SG-7B ``--quantize int4`` (int4
@@ -114,7 +121,18 @@ Phases (each prints its lines; any failure exits non-zero):
     launches by branch, the prefill's last-position logits against the same
     model with K3's plain version (rel_l2 within a measured rounding floor,
     the first token on clear-margin rows), and, printed only, their top-1
-    agreement with the same weights at ``quant_int8_mxu=True``.
+    agreement with the same weights at ``quant_int8_mxu=True``;
+14. int8 at ``quant_int8_mxu=False``: phase 3's inputs and seeded weights
+    through MM2SG-7B ``--quantize int8`` with the LlamaConfig field off (set
+    with ``dataclasses.replace`` before ``quantize_int8``): K2's W8A16
+    branch at every projection (prefill and decode) and the lm_head, K4
+    decoding 300 tokens, K1 at prefill; one warm and one timed call
+    (prefill ms, decode ms/token, frames/s, peak memory), phase 3's decode
+    profile, the launches of K2 by branch and of K4, the prefill's
+    last-position logits against the same model with K2's plain version
+    (rel_l2 within a measured rounding floor, the first token on
+    clear-margin rows), and, printed only, their top-1 agreement with the
+    W8A8 model (phase 3's).
 
 Each phase prints its wall time. The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -141,6 +159,11 @@ KERNELS = {
         "cuda", "mmor_tpu_torch/csrc/flash_attention.cu",
         "mmor_tpu/ops/attention.py:241"),
     "K2 int8_matmul_packed": (
+        "cuda", "mmor_tpu_torch/csrc/int8_matmul.cu",
+        "mmor_tpu/ops/quantized_matmul.py:187"),
+    # K2's two branches too: W8A16 (int8_mxu off) is a kernel a row range,
+    # the wgmma one above 16 rows and stream_matmul.cu's row-word one below
+    "K2-w8a16 int8_matmul_packed(w8a16)": (
         "cuda", "mmor_tpu_torch/csrc/int8_matmul.cu",
         "mmor_tpu/ops/quantized_matmul.py:187"),
     # K3's two branches (int8_mxu on and off) are one kernel a branch
@@ -222,7 +245,7 @@ KERNELS = {
 # the kernels each path runs (phase 3: int8, phase 5: int4, phase 7:
 # panoptic, phase 9: overlapped int4, phase 10: int8 megakernel, phase 11:
 # overlapped int8 megakernel, phase 12: the perf tools, phase 13: int4 at
-# quant_int8_mxu=False)
+# quant_int8_mxu=False, phase 14: int8 at quant_int8_mxu=False)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
@@ -236,14 +259,17 @@ PATH_KERNELS = {
     "overlap8": ("K1 flash_attention", "K2 int8_matmul_packed",
                  "K5-int8 mega_decode_layers(int8)",
                  "K5-int8-pf mega_decode_layers(int8,pf)"),
-    "perf": ("K2 int8_matmul_packed", "K7 decode_attention_packed", "K8 int8_matmul",
+    "perf": ("K2 int8_matmul_packed", "K2-w8a16 int8_matmul_packed(w8a16)",
+             "K7 decode_attention_packed", "K8 int8_matmul",
              "K9 fused_o_mlp", "K10a w8a16_matmul", "K10b wp_matmul",
              "K10c w8b_matmul(bf16)", "K10c w8b_matmul(mxu8)", "K10d dma_gather",
              "K10e xread_matmul(stack)", "K10e xread_matmul(dslice)", "K10e tiny",
              "K10e nibble_matmul", "K10e rowrw", "K10f reshape_copy", "K10f st_product",
              "K3 int4_matmul_packed", "K3-w4a16 int4_matmul_packed(w4a16)"),
-    "int4a16": ("K1 flash_attention", "K2 int8_matmul_packed",
+    "int4a16": ("K1 flash_attention", "K2-w8a16 int8_matmul_packed(w8a16)",
                 "K3-w4a16 int4_matmul_packed(w4a16)", "K5 mega_decode_layers"),
+    "int8a16": ("K1 flash_attention", "K2-w8a16 int8_matmul_packed(w8a16)",
+                "K4 decode_attention_packed_stack"),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -299,6 +325,16 @@ K3_SHAPES = ((4096, 12288), (4096, 4096), (4096, 22528), (11264, 4096))
 # f32 x is rounded to bf16 first, as the TPU kernel does (measured 1.7e-3,
 # 2^-9 relative a value)
 K3_A16_BOUND = {"bf16": 1e-3, "f32": 5e-3}
+# K2's W8A16 branch against its plain version (the JAX CPU path: f32
+# dequantization, then x @ w): the kernels sum exact bf16 products of x and
+# the int8 weights in f32 on the tensor cores and apply the column scale
+# once, so bf16 outputs differ where the two f32 sums fall on either side of
+# a rounding boundary, and f32 x is rounded to bf16 first, as the TPU branch
+# does (2^-9 relative a value); K3's W4A16 bounds, for the same reasons
+K2_A16_BOUND = K3_A16_BOUND
+# K2's W8A16 branch at phase 14's projections: q, k, v and o; gate and up
+# (the ffn padded to 11264); down
+K2_SHAPES = ((4096, 4096), (4096, 11264), (11264, 4096))
 # K9 against its plain version: both take the same bf16 operands and f32
 # products, summed in another order, and round h and m to bf16 once, so an
 # h or m entry at a near-tie can come out one bf16 step apart and carry that
@@ -405,8 +441,9 @@ def probe_modules():
 
 
 def _counters() -> dict:
-    """Each kernel's launch count: (wrapper, attribute). K3's wrapper counts
-    its W4A16 launches apart from its W4A8 ones; K5's its launches with pf
+    """Each kernel's launch count: (wrapper, attribute). K2's and K3's
+    wrappers count their W8A16 and W4A16 launches apart from their W8A8 and
+    W4A8 ones; K5's its launches with pf
     rows (K5-pf) apart from those without, and those at an int8 width
     (K5-int8) apart from the int4 ones; K10c's its mxu8 mode
     apart from its bf16 mode; K10e's x-read its 2-D x (line c) apart from its
@@ -418,6 +455,7 @@ def _counters() -> dict:
     MP, RP = probe_modules()
     return {"K1 flash_attention": (A.flash_attention, "launches"),
             "K2 int8_matmul_packed": (Q.int8_matmul_packed, "launches"),
+            "K2-w8a16 int8_matmul_packed(w8a16)": (Q.int8_matmul_packed, "a16_launches"),
             "K3 int4_matmul_packed": (Q.int4_matmul_packed, "launches"),
             "K3-w4a16 int4_matmul_packed(w4a16)": (Q.int4_matmul_packed, "a16_launches"),
             "K4 decode_attention_packed_stack": (A.decode_attention_packed_stack,
@@ -503,18 +541,19 @@ def plain_versions(perturb=None):
 
 
 @contextlib.contextmanager
-def plain_k3(perturb=None):
-    """Route the models' K3 calls to its plain version, the other kernels
-    as they are; with a ``torch.Generator`` as ``perturb``, every K3 output
+def plain_qmm(name: str, perturb=None):
+    """Route the models' calls of one quantized matmul wrapper of
+    ``ops.quantized_matmul`` (``name``: "int8_matmul_packed" for K2,
+    "int4_matmul_packed" for K3) to its plain version, the other kernels as
+    they are; with a ``torch.Generator`` as ``perturb``, every output of it
     is also ``perturbed``."""
     Q = kernel_modules()[1]
-    kernel = Q.int4_matmul_packed
-    Q.int4_matmul_packed = lambda *a, **kw: perturbed(Q.int4_matmul_packed_plain(*a, **kw),
-                                                       perturb)
+    kernel, plain = getattr(Q, name), getattr(Q, name + "_plain")
+    setattr(Q, name, lambda *a, **kw: perturbed(plain(*a, **kw), perturb))
     try:
         yield
     finally:
-        Q.int4_matmul_packed = kernel
+        setattr(Q, name, kernel)
 
 
 @contextlib.contextmanager
@@ -954,16 +993,11 @@ def kernel_cases(dev):
                 1e-3, 10 if m == 8 else 3, m == 8 or n != 32000,
                 m * kdim * 2 + kdim * n + n * 4 + m * n * 2, {"int8": 2.0 * m * kdim * n},
                 library=library, exact=True))
-    # W8A16 (quant_int8_mxu=False): not on a serving path
+    # W8A16 (quant_int8_mxu=False): phase 14's decode rows at the q, k, v
+    # and o projections (the branch's other shapes: _k2_a16_cases)
     x = randn(8, 4096)
     w_q, scale = Q.quantize_weights(torch.randn(4096, 4096, generator=g, device=dev) * 0.02)
-    w_p = Q.pack_int8_rows(w_q)
-    cases.append(Case(
-        "K2 int8_matmul_packed", "w8a16 M=8 K=4096 N=4096",
-        lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed(x, w_p, s, int8_mxu=False),
-        lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s, int8_mxu=False),
-        1e-3, 10, False, 8 * 4096 * 2 + 4096 * 4096 + 4096 * 4 + 8 * 4096 * 2,
-        {"bf16": 2.0 * 8 * 4096 * 4096}))
+    cases.append(k2_a16_case(x, w_q, scale, "w8a16 M=8 K=4096 N=4096", 10, True))
     cases.extend(_edge_cases(dev))
 
     # K3 at the int4 path's prefill rows (M=8x708) and at decode rows over
@@ -1014,6 +1048,8 @@ def kernel_cases(dev):
         cases.extend(_k5_cases(dev, g8, wbits, kvbits, with_pf=False, on_path=False))
     cases.extend(_perf_cases(dev))
     cases.extend(_k3_a16_cases(dev))
+    cases.extend(_k2_a16_cases(dev))
+    cases.extend(_decode_attention_edge_cases(dev))
     cases.extend(_tail_gather_cases(dev))
     cases.extend(_probe_cases(dev))
     # last, so that every case before it meets the card as it did before
@@ -1099,6 +1135,117 @@ def _edge_cases(dev):
             lambda x=x, w_p=w_p, s=scale: Q.int8_matmul_packed_plain(x, w_p, s),
             1e-3, 3, False, m * kdim * x.element_size() + kdim * n + n * 4
             + m * n * x.element_size(), {"int8": 2.0 * m * kdim * n}, exact=True))
+    return cases
+
+
+def k2_a16_case(x, w_q, scale, name: str, iters: int, on_path: bool):
+    """One case of K2's W8A16 branch on x and the int8 weight ``w_q`` with
+    its column scales: within K2_A16_BOUND of the plain version, the bound
+    the larger of the bytes and the bf16 operations, the library one
+    ``torch.matmul`` of x and the weight dequantized to x's dtype (the
+    dequantization not timed)."""
+    import torch
+
+    Q = kernel_modules()[1]
+    m, kdim = x.shape
+    n = w_q.shape[1]
+    w_p = Q.pack_int8_rows(w_q)
+    w_deq = (w_q.float() * scale[None, :]).to(x.dtype)
+    size = x.element_size()
+    return Case(
+        "K2-w8a16 int8_matmul_packed(w8a16)", f"{name} library=torch.matmul(x,dequantized_w)",
+        lambda: Q.int8_matmul_packed(x, w_p, scale, int8_mxu=False),
+        lambda: Q.int8_matmul_packed_plain(x, w_p, scale, int8_mxu=False),
+        K2_A16_BOUND["bf16" if x.dtype == torch.bfloat16 else "f32"], iters, on_path,
+        m * kdim * size + kdim * n + n * 4 + m * n * size, {"bf16": 2.0 * m * kdim * n},
+        library=lambda: torch.matmul(x, w_deq))
+
+
+def _k2_a16_cases(dev):
+    """K2's W8A16 branch (``int8_mxu=False``) at phase 14's rows, decode (M
+    8; M 8 x 4096 x 4096 is in ``kernel_cases``) and prefill (M 8 x 708),
+    over K2_SHAPES, and at the lm_head (M 8 x 4096 x 32000: the decode steps
+    of phases 13 and 14); then off the serving shapes: one row, 16 and 17
+    rows (the edges of the two kernels), N % 4 != 0 (cp.async words) off
+    the 128-column tiles, K % 128 != 0, more than one 256-row tile with the
+    last ragged, and f32 x. Inputs from a generator of their own."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+    serving = [(m, k, n) for m in (8, 5664) for k, n in K2_SHAPES if (m, k, n) != (8, 4096, 4096)]
+    edges = [(1, 4096, 4096, torch.bfloat16), (16, 4096, 4100, torch.bfloat16),
+             (17, 4160, 4100, torch.bfloat16), (300, 256, 90, torch.bfloat16),
+             (5667, 4160, 4100, torch.bfloat16), (13, 192, 70, torch.float32),
+             (100, 4160, 4100, torch.float32)]
+    for m, kdim, n, dtype in ([(m, k, n, torch.bfloat16) for m, k, n in serving]
+                              + [(8, 4096, 32000, torch.bfloat16)] + edges):
+        x = torch.randn(m, kdim, generator=g, device=dev).to(dtype)
+        w_q, scale = kernel_modules()[1].quantize_weights(
+            torch.randn(kdim, n, generator=g, device=dev) * 0.02)
+        edge = (m, kdim, n, dtype) in edges
+        name = f"{'edge ' if edge else ''}w8a16 M={m} K={kdim} N={n}" + (
+            f" {str(dtype)[6:]}" if edge else "")
+        cases.append(k2_a16_case(x, w_q, scale, name, 3 if m > 16 or edge else 10, not edge))
+    return cases
+
+
+def _decode_attention_edge_cases(dev):
+    """K4 and K7 off the serving shapes, where the cluster's ranks and the
+    skipped positions have edges (inputs from a generator of their own): 8
+    ranks of 128 positions at batch 1 with a row of one valid position; T
+    not a multiple of a rank's span, with a left-padded row, a row whose one
+    valid position is the last, and a row with no valid position (equal
+    weights over all of T), at head dim 64 with f32 q; K4 on the last layer
+    of a stack with a fully masked row; head dims 256 and 16. Bounds as on
+    the serving shapes: K7_BOUND, and K4's 1e-2 (its plain version rounds
+    the weights to bf16)."""
+    import torch
+
+    A = kernel_modules()[0]
+    g = torch.Generator(device=dev).manual_seed(14)
+    bf = torch.bfloat16
+    cases = []
+
+    def inputs(lead, t, d, sdt):
+        kv = [torch.randint(-127, 128, (*lead, t, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2)]
+        sc = [(torch.rand(*lead, t, generator=g, device=dev) * 0.02 + 0.005).to(sdt)
+              for _ in range(2)]
+        return kv + sc
+
+    def nbytes(h, mask, d, ssize):
+        loaded = sum(int(r.sum()) if r.any() else r.numel() for r in mask)
+        return h * loaded * 2 * (d + ssize) + mask.numel() * 4 + 2 * mask.shape[0] * h * d * 2
+
+    for what, b, h, t, d, qdt, sdt, rows in (
+            ("ranks=8 valid_len=1", 1, 32, 1024, 128, bf, torch.float32, ((500, 501),)),
+            ("T=1000 leftpad,last_only,none", 3, 4, 1000, 64, torch.float32, bf,
+             ((37, 1000), (999, 1000), (0, 0))),
+            ("D=256", 2, 2, 300, 256, bf, bf, ((0, 300), (10, 150))),
+            ("D=16", 2, 3, 130, 16, bf, torch.float32, ((0, 1), (64, 130)))):
+        k8, v8, ks, vs = inputs((b, h), t, d, sdt)
+        mask = torch.zeros(b, t, dtype=torch.int32, device=dev)
+        for r, (lo, hi) in enumerate(rows):
+            mask[r, lo:hi] = 1
+        q = torch.randn(b, h, 1, d, generator=g, device=dev).to(qdt)
+        args = (q, k8, v8, ks, vs, mask)
+        cases.append(Case(
+            "K7 decode_attention_packed", f"edge {what} B={b} H={h} T={t} D={d}",
+            lambda a=args: A.decode_attention_packed(*a),
+            lambda a=args: A.decode_attention_packed_plain(*a), K7_BOUND, 5, False,
+            nbytes(h, mask, d, ks.element_size()), {"cuda_core": 4.0 * h * b * t * d}))
+    L, b, h, t, d = 2, 2, 8, 333, 128
+    k8, v8, ks, vs = inputs((L, b, h), t, d, bf)
+    mask = torch.zeros(b, t, dtype=torch.int32, device=dev)
+    mask[1, 5:200] = 1  # row 0: no valid position
+    q = torch.randn(b, h, 1, d, generator=g, device=dev).to(bf)
+    args = (q, k8, v8, ks, vs, mask, L - 1)
+    cases.append(Case(
+        "K4 decode_attention_packed_stack", f"edge last_layer masked_row B={b} H={h} T={t} D={d}",
+        lambda: A.decode_attention_packed_stack(*args),
+        lambda: A.decode_attention_packed_stack_plain(*args), 1e-2, 5, False,
+        nbytes(h, mask, d, 2), {"cuda_core": 4.0 * h * b * t * d}))
     return cases
 
 
@@ -1692,6 +1839,7 @@ def phase_main_path(dev, preset_name: str = "7b", batch: int = BATCH,
     check(tokens.shape == (batch, new_tokens), f"tokens {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < lc.vocab_size)).all()), "token ids out of range")
     check(bool((runs[0] == runs[1]).all()), "two runs on the same inputs disagree")
+    perop_decode_profile(dev, prefill, step, data, bufs, "3 main-path")
 
     # the prefill with the kernels against the same prefill with the plain
     # versions, same weights and inputs; and the plain prefill against itself
@@ -1734,6 +1882,34 @@ def phase_main_path(dev, preset_name: str = "7b", batch: int = BATCH,
         profile_window(dev, f"decode_{n_steps}_steps", decode_steps, profile_dir)
         profile_window(dev, "prefill", lambda: prefill(data, bufs), profile_dir)
     return counts
+
+
+def perop_decode_profile(dev, prefill, step, data, bufs, phase: str) -> None:
+    """``LAUNCH_STEPS`` per-op decode steps from a fresh prefill under
+    torch.profiler (phases 3 and 14): launches a step, the device's busy
+    time a step (its kernels' durations summed) against the host's wall,
+    the busy share, and K4's device time a step. The path is host-bound, so
+    a faster decode kernel shows here, in the busy share, before it shows in
+    frames/s."""
+    import torch
+
+    logits, cache = prefill(data, bufs)
+    first = logits[:, -1].argmax(dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def decode_steps():  # rewrites the same cache slots on every call
+        tok, c = first, dict(cache)
+        for _ in range(LAUNCH_STEPS):
+            tok, c = step(c, tok[:, None])
+
+    decode_steps()  # warm
+    n_ev, busy_us, wall_us, k4_us = device_window(dev, decode_steps, names=("decode_kernel",))
+    say(phase, step="decode-profile", steps=LAUNCH_STEPS,
+        launches_per_step=f"{n_ev / LAUNCH_STEPS:.1f}",
+        device_busy_ms_per_step=f"{busy_us / 1e3 / LAUNCH_STEPS:.3f}",
+        wall_ms_per_step=f"{wall_us / 1e3 / LAUNCH_STEPS:.3f}",
+        busy_share=f"{busy_us / wall_us:.4f}",
+        k4_device_ms_per_step=f"{k4_us / 1e3 / LAUNCH_STEPS:.3f}")
 
 
 def profile_window(dev, name: str, fn, out_dir: str, phase: str = "3 profile") -> None:
@@ -2536,9 +2712,9 @@ def phase_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
     # and the plain one against itself with each K3 output moved by a
     # rounding step (the spread that rounding alone causes in this model)
     logits_k = prefill(data, bufs)[0][:, -1].float()
-    with plain_k3():
+    with plain_qmm("int4_matmul_packed"):
         logits_p = prefill(data, bufs)[0][:, -1].float()
-    with plain_k3(perturb=torch.Generator(device=dev).manual_seed(1)):
+    with plain_qmm("int4_matmul_packed", perturb=torch.Generator(device=dev).manual_seed(1)):
         logits_n = prefill(data, bufs)[0][:, -1].float()
     err, floor = rel_l2(logits_k, logits_p), rel_l2(logits_n, logits_p)
     bound = LOGITS_FLOOR_FACTOR * floor
@@ -2623,6 +2799,132 @@ def phase_perf_tools(dev) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- phase 14
+def phase_int8_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
+                        prompt_len: int = PROMPT_LEN, new_tokens: int = NEW_TOKENS,
+                        phase: str = "14 int8-w8a16") -> dict:
+    """MM2SG-7B ``--quantize int8`` at ``quant_int8_mxu=False`` (no CLI flag,
+    in JAX or here: the LlamaConfig field, set with ``dataclasses.replace``
+    before ``quantize_int8``, which keeps it) through ``generate_stepwise``
+    on phase 3's inputs and seeded weights: K2's W8A16 branch at every
+    projection (the prefill's M 8 x 708 rows on its wgmma kernel, the
+    decode's M 8 on its row-word kernel, the lm_head included), K4 at every
+    decode layer, K1 at prefill; 300 new tokens, as phase 3. One warm call
+    and one timed call (prefill ms, decode ms/token, frames/s, peak
+    memory), ``perop_decode_profile`` (the device's busy share, K4's time),
+    the launches of K2 by branch and of K4; the prefill's last-position
+    logits against the same model with K2 swapped for its plain version,
+    within LOGITS_FLOOR_FACTOR times the spread that a rounding step of each
+    K2 output causes, and the first token on every row whose top-2 margin
+    exceeds twice the largest logit difference; the top-1 agreement with the
+    same weights at ``quant_int8_mxu=True`` (phase 3's W8A8 model) is
+    printed, not gated: the two numerics differ by design. Returns the
+    path's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from mmor_tpu_torch.cli.common import build_predictor, quantize_int8
+    from mmor_tpu_torch.inference import ByteTokenizer, SceneGraphPredictor
+    from mmor_tpu_torch.models.llama import QuantDense, make_decode_step
+    from mmor_tpu_torch.models.mm2sg import generate_stepwise, make_prefill
+
+    t0 = time.perf_counter()
+    model = build_predictor(preset_name, ByteTokenizer(), None, device=dev, seed=0).model
+    model.cfg = dataclasses.replace(
+        model.cfg, llama=dataclasses.replace(model.cfg.llama, quant_int8_mxu=False))
+    model = quantize_int8(model).eval()
+    predictor = SceneGraphPredictor(cfg=model.cfg, model=model, tokenizer=ByteTokenizer(),
+                                    device=dev)
+    lc = model.cfg.llama
+    data = left_padded_batch(model.cfg, batch, prompt_len, dev)
+    sync(dev)
+    say(phase, step="setup", preset=preset_name, seconds=f"{time.perf_counter() - t0:.2f}",
+        weight_quant=lc.weight_quant, weight_bits=lc.weight_bits, kv_quant=lc.kv_quant,
+        mega_decode=lc.mega_decode, ffn_pad=lc.ffn_pad, quant_int8_mxu=lc.quant_int8_mxu,
+        new_tokens=new_tokens)
+    check(not lc.quant_int8_mxu and lc.weight_quant and lc.weight_bits == 8 and lc.kv_quant
+          and not lc.mega_decode, "not the int8 W8A16 config")
+
+    cache_len = predictor._cache_len_for(prompt_len)
+    cfg_run = dict(max_cache_len=cache_len, max_new_tokens=new_tokens, eos_token_id=-1)
+    prefill = make_prefill(model, max_cache_len=cache_len)
+    step = make_decode_step(model.language_model)
+    prefill_s: list[float] = []
+
+    def timed_prefill(b, bufs):
+        sync(dev)
+        t = time.perf_counter()
+        out = prefill(b, bufs)
+        sync(dev)
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    reset_launch_counts()
+    tokens, bufs = generate_stepwise(model, data, prefill_fn=timed_prefill, step_fn=step,
+                                     **cfg_run)  # warm
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t = time.perf_counter()
+    tokens, bufs = generate_stepwise(model, data, prefill_fn=timed_prefill, step_fn=step,
+                                     cache_buffers=bufs, **cfg_run)
+    sync(dev)
+    total = time.perf_counter() - t
+    decode_ms = (total - prefill_s[-1]) * 1e3 / (new_tokens - 1)
+    say(phase, step="run", frames_per_s=f"{batch / total:.4f}", total_s=f"{total:.4f}",
+        prefill_ms=f"{prefill_s[-1] * 1e3:.2f}", decode_ms_per_token=f"{decode_ms:.3f}",
+        cache_len=cache_len,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+    all_counts = launch_counts()
+    counts = {k: v for k, v in all_counts.items() if k in PATH_KERNELS["int8a16"]}
+    say(phase, step="launches", tokens="x".join(map(str, tokens.shape)),
+        k2_w8a8=all_counts["K2 int8_matmul_packed"],
+        **{k.split()[0]: v for k, v in counts.items()})
+    for name, n in counts.items():
+        check(dev.type != "cuda" or n > 0, f"{name} was not launched on the int8a16 path")
+    check(all_counts["K2 int8_matmul_packed"] == 0, "K2's W8A8 branch ran at int8_mxu=False")
+    check(tokens.shape == (batch, new_tokens), f"tokens {tokens.shape}")
+    check(bool(((tokens >= 0) & (tokens < lc.vocab_size)).all()), "token ids out of range")
+    perop_decode_profile(dev, prefill, step, data, bufs, phase)
+
+    # the prefill with K2 against the same prefill with K2's plain version,
+    # and the plain one against itself with each K2 output moved by a
+    # rounding step (the spread that rounding alone causes in this model)
+    logits_k = prefill(data, bufs)[0][:, -1].float()
+    with plain_qmm("int8_matmul_packed"):
+        logits_p = prefill(data, bufs)[0][:, -1].float()
+    with plain_qmm("int8_matmul_packed", perturb=torch.Generator(device=dev).manual_seed(1)):
+        logits_n = prefill(data, bufs)[0][:, -1].float()
+    err, floor = rel_l2(logits_k, logits_p), rel_l2(logits_n, logits_p)
+    bound = LOGITS_FLOOR_FACTOR * floor
+    diff = (logits_k - logits_p).abs().amax(dim=-1)
+    top2 = logits_p.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * diff  # rows whose argmax cannot flip
+    agree = logits_k.argmax(-1) == logits_p.argmax(-1)
+    # the same weights at quant_int8_mxu=True: every QuantDense takes K2's
+    # int8-activation branch
+    dense = [mod for mod in model.modules() if isinstance(mod, QuantDense)]
+    for mod in dense:
+        mod.int8_mxu = True
+    try:
+        logits_8 = prefill(data, bufs)[0][:, -1].float()
+    finally:
+        for mod in dense:
+            mod.int8_mxu = False
+    agree8 = logits_k.argmax(-1) == logits_8.argmax(-1)
+    say(phase, step="k2-vs-plain-prefill", logits_rel_l2=f"{err:.3e}",
+        rounding_floor_rel_l2=f"{floor:.3e}", bound=f"{bound:.3e}",
+        first_token_agree=f"{int(agree.sum())}/{batch}", clear_margin_rows=int(clear.sum()),
+        finite=bool(torch.isfinite(logits_k).all()),
+        w8a8_first_token_agree=f"{int(agree8.sum())}/{batch}",
+        w8a8_logits_rel_l2=f"{rel_l2(logits_k, logits_8):.3e}")
+    check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
+    check(err <= bound, f"prefill logits rel_l2 {err:.3e} > {bound:.3e}")
+    check(bool(agree[clear].all()), "first token differs on a row with a clear margin")
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def _build_phase(build) -> None:
     path, secs = build.build()
@@ -2639,10 +2941,11 @@ def nvcc_report(log: str) -> list[dict]:
     compiled from ``mega_decode.cu`` (its four (WBITS, KVBITS)
     instantiations and the W4A8/W8A8 cores), ``fused_mlp.cu`` (K9, whose
     registers set its cooperative grid), ``flash_attention.cu`` (K1, one
-    kernel a head dim), ``int8_matmul.cu``'s wgmma and stream kernels (K2 at
-    M > 16, K8 at M <= 16), ``int4_matmul.cu``'s wgmma kernels (K3 at M >
-    16, both branches) and ``reshape_probe.cu``'s product (K10f), one
-    dict a kernel, under the kernel's mangled name. K1's count is its
+    kernel a head dim), ``decode_attention.cu`` (K4 and K7),
+    ``int8_matmul.cu``'s wgmma and stream kernels (K2 at M > 16, both
+    branches, K8 at M <= 16), ``int4_matmul.cu``'s wgmma kernels (K3 at M >
+    16, both branches) and ``reshape_probe.cu``'s product (K10f), one dict
+    a kernel, under the kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
     import re
@@ -2657,9 +2960,10 @@ def nvcc_report(log: str) -> list[dict]:
                           r"(\d+) bytes spill loads", line):
             frame = "/".join(m.groups())
         if (m := re.search(r"Used (\d+) registers", line)) and name:
-            if (source.endswith(("mega_decode.cu", "fused_mlp.cu", "flash_attention.cu"))
+            if (source.endswith(("mega_decode.cu", "fused_mlp.cu", "flash_attention.cu",
+                                 "decode_attention.cu"))
                     or (source.endswith("int8_matmul.cu")
-                        and ("s8_wgmma" in name or "s8_stream" in name))
+                        and ("wgmma" in name or "s8_stream" in name))
                     or (source.endswith("int4_matmul.cu") and "wgmma" in name)
                     or (source.endswith("reshape_probe.cu") and "product" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
@@ -2679,7 +2983,7 @@ def nvcc_report(log: str) -> list[dict]:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="phases 3, 5, 7, 9, 10 and 11 also write per-kernel device time "
@@ -2748,6 +3052,7 @@ def main(argv=None) -> int:
                                                "overlap8", profile_dir=prof)),
         12: ("perf", lambda: phase_perf_tools(dev)),
         13: ("int4a16", lambda: phase_a16_path(dev)),
+        14: ("int8a16", lambda: phase_int8_a16_path(dev)),
     }
     t_start = time.perf_counter()
     try:

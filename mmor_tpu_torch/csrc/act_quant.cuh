@@ -1,7 +1,8 @@
-// Activation quantization shared by K2 and K8 (int8_matmul.cu) and K3
+// Activation preparation shared by K2 and K8 (int8_matmul.cu) and K3
 // (int4_matmul.cu): per-row symmetric int8 rows, the numerics of
 // mmor_tpu/ops/quantized_matmul.py:214-217 and :395-399 (K2, K3) or of
-// :81-84 (K8).
+// :81-84 (K8); and the bf16 rounding of f32 rows that the W8A16 and W4A16
+// branches take (:219-220, :403), as their TPU kernels do.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,6 +56,27 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
                         : rintf(to_float(from_float<T>(to_float(xr[i]) * inv)));
     qr[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
   }
+}
+
+// ------------------------------------------------------------ bf16 rows
+// f32 x -> bf16 (round to nearest even), four values a thread (count % 4 ==
+// 0, both pointers 16-byte aligned)
+__global__ void to_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y,
+                               size_t count) {
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4; i < count;
+       i += (size_t)gridDim.x * blockDim.x * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(x + i);
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(y + i);
+    o[0] = __floats2bfloat162_rn(v.x, v.y);
+    o[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
+inline cudaError_t round_to_bf16(const float* x, __nv_bfloat16* y, size_t count,
+                                 cudaStream_t s) {
+  const size_t blocks = (count / 4 + 255) / 256;
+  to_bf16_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(x, y, count);
+  return cudaGetLastError();
 }
 
 }  // namespace

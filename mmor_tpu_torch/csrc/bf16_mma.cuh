@@ -1,7 +1,8 @@
 // The bf16 tensor-core product shared by the weight-stream kernels
-// (stream_matmul.cu: K10a, K10b, K10c's bf16 mode) and the fused o-proj +
-// MLP tail (fused_mlp.cu: K9): mma.sync.m16n8k16 with f32 accumulation, and
-// the packing of integer weight values into its bf16 B registers.
+// (stream_matmul.cu: K10a, K10b, K10c's bf16 mode, K2's W8A16 at decode
+// rows) and the fused o-proj + MLP tail (fused_mlp.cu: K9):
+// mma.sync.m16n8k16 with f32 accumulation, and the packing of integer
+// weight values into its bf16 B registers.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -31,12 +31,13 @@
 //    folded in group order, acc = acc + float(dot) * scale[group, col]
 //    (__fmul_rn, __fadd_rn, never contracted), and acc * row_scale last:
 //    bit for bit int4_matmul_packed_plain(int8_mxu=True).
-//  - W4A16: x in bf16 (f32 x is rounded to bf16 by a pre-pass kernel into
-//    the wrapper's scratch, so the product kernels read bf16 only); each
-//    K-group's dot sums exact bf16 products in f32 on the tensor cores and
-//    folds the same way, acc = acc + dot * scale[group, col]. The plain
-//    version is the JAX CPU path (f32 dequantization, then x @ w), so the
-//    two differ by the sums' order and, for f32 x, by x's rounding.
+//  - W4A16: x in bf16 (f32 x is rounded to bf16 by a pre-pass kernel,
+//    act_quant.cuh's to_bf16_kernel, into the wrapper's scratch, so the
+//    product kernels read bf16 only); each K-group's dot sums exact bf16
+//    products in f32 on the tensor cores and folds the same way, acc = acc
+//    + dot * scale[group, col]. The plain version is the JAX CPU path (f32
+//    dequantization, then x @ w), so the two differ by the sums' order and,
+//    for f32 x, by x's rounding.
 //
 // Kernels:
 //  - M <= 16 (decode rows): W4A8 is w4a8.cuh's skinny kernel. W4A16 is
@@ -49,7 +50,7 @@
 //    partial dots meet in shared memory, are summed in warp order and
 //    folded in group order.
 //  - M > 16 (prefill): wgmma_kernel<W4A8 or W4A16>, K2's prefill form
-//    (int8_matmul.cu's s8_wgmma_kernel) for int4 words. Each output tile is
+//    (int8_matmul.cu's wgmma_kernel<true>) for int4 words. Each output tile is
 //    computed transposed, W^T (columns x K) times x^T (K x rows): the
 //    weight words, converted in registers, are the A fragments (a fragment
 //    row is a weight column), and the activation rows are the K-major B
@@ -124,18 +125,6 @@ constexpr uint32_t kBytes01 = 0x4140u, kBytes23 = 0x4342u;
 // complement (the same bytes as w4a8.cuh's __vsub4, in fewer instructions)
 __device__ __forceinline__ uint32_t nibbles_s8(uint32_t w) {
   return ((w & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
-}
-
-// f32 x -> bf16, four values a thread (count % 4 == 0, 16-byte aligned)
-__global__ void to_bf16_kernel(const float* __restrict__ x, bf16* __restrict__ y,
-                               size_t count) {
-  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4; i < count;
-       i += (size_t)gridDim.x * blockDim.x * 4) {
-    const float4 v = *reinterpret_cast<const float4*>(x + i);
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(y + i);
-    o[0] = __floats2bfloat162_rn(v.x, v.y);
-    o[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
 }
 
 // ------------------------------------------------------- W4A16, M <= 16
@@ -530,10 +519,7 @@ cudaError_t launch_w4a16(const T* x, bf16* xb, const uint32_t* w, const float* s
                          T* out, int m, int k, int n, int group, cudaStream_t s) {
   const bf16* xs = reinterpret_cast<const bf16*>(x);
   if constexpr (std::is_same<T, float>::value) {  // the pre-pass: x rounded to bf16
-    const size_t count = (size_t)m * k;
-    const int blocks = (int)((count / 4 + 255) / 256 < 4096 ? (count / 4 + 255) / 256 : 4096);
-    to_bf16_kernel<<<blocks, 256, 0, s>>>(x, xb, count);
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = round_to_bf16(x, xb, (size_t)m * k, s);
     if (e != cudaSuccess) return e;
     xs = xb;
   }

@@ -34,7 +34,8 @@
 //      tile, and fetches their words of a word row at once
 //      (weight_words.cuh's w_words4).
 //    * stream kernel (M <= 16 on K8's byte layout): see below.
-//    * wgmma kernel (M > 16, prefill; packed words only): see below.
+//    * wgmma kernel (M > 16, prefill; packed words only): see below
+//      (wgmma_kernel<true>, one template with the W8A16 product).
 //    * tiled kernel (M > 16 on K8's byte layout, which no serving path
 //      runs): 64 x 64 block tiles, a 2 x 2 warp grid of 32 x 32 warp tiles
 //      on mma.sync, K staged through shared memory 64 at a time.
@@ -101,8 +102,30 @@
 //    (WLayout::kWords) with K8's rule (QuantRule::kDivide): bench_bitcast's
 //    pack_rows_int8 is pack_int8_rows, and its epilogue, acc * scale in f32
 //    and then times the row scale, is K2's.
-//  - W8A16 (int8_mxu off): a plain FMA kernel over bf16/f32 activations and
-//    int8 weights converted in registers, f32 accumulation, times col_scale.
+//  - W8A16 (int8_mxu off): the TPU branch's numerics
+//    (quantized_matmul.py:170-174, :219-220): x rounded to bf16 (f32 x by
+//    a pre-pass kernel into the wrapper's scratch, act_quant.cuh), exact
+//    bf16 products of x and the int8 weights summed in f32, times
+//    scale[col] once, in x's dtype. What bounds it: at prefill (M = 8 x
+//    708) the bf16 tensor-core rate, half the int8 one, on twice the
+//    activation bytes; at decode rows the weight bytes, 1 a weight.
+//    * M > 16: the wgmma kernel below in its bf16 form (wgmma_kernel<false>,
+//      K2's W8A8 design with K3's W4A16 fragments): the same 128 x 256
+//      tile of W^T x^T, one m64n256k16 bf16 product a
+//      16-k step and one f32 accumulator set (no group folds, unlike K3's
+//      W4A16, so the 256-row width fits: 128 accumulators and two stages
+//      of fragments a thread), 5 stages of 64 k (16 word rows and a
+//      256-row box of 128 bytes: 40 KB). The bf16 A fragment takes k in
+//      pairs, so two lanes read each word and convert one byte pair each
+//      (s8_pair_bf16: exact, 6 instructions a register, about 48 issue
+//      cycles an SM a step against the products' 256). The 256-row width
+//      is kept on measurement: 128-row tiles (m64n128, 8 stages of 24 KB,
+//      half the accumulators), which move 1.2x the stage bytes a
+//      multiply-add, were slower at every prefill shape on the card.
+//    * M <= 16: stream_matmul.cu's row-word kernel (K10c's bf16 mode, the
+//      same function on the same words): bf16 mma.sync, four 16-byte weight
+//      loads a thread in flight (16 warps a block where the 32-column
+//      blocks are too few to fill the card), the weight read once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,6 +134,11 @@
 #include "act_quant.cuh"
 #include "hopper.cuh"
 #include "weight_words.cuh"
+
+// stream_matmul.cu's weight-stream entry (K10b, K10c's bf16 mode): K2's
+// W8A16 branch at up to 16 rows
+extern "C" int mmor_wp_matmul(const void* x, const void* w, const void* scale, void* out,
+                              int m, int k, int n, int bits, int out_bf16, void* stream);
 
 namespace {
 
@@ -612,46 +640,75 @@ s8_tiled_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
   }
 }
 
-// ----------------------------------------------------------------- W8A8 wgmma
+// ------------------------------------------------------ W8A8 and W8A16 wgmma
 namespace wg {
 constexpr int kCols = 128;          // weight columns a block, 64 a consumer warpgroup
-constexpr int kRows = 256;          // activation rows a block: the wgmma's N
-constexpr int kTileK = 128;         // k a stage: 128 bytes of a row, 32 word rows
-constexpr int kWordRows = kTileK / 4;
-constexpr int kStages = 4;
 constexpr int kBox = wbox::kCols;   // weight columns a 128-byte swizzled box
-constexpr int kBoxBytes = kWordRows * kBox * 4;      // 4 KB
-constexpr int kXBytes = kRows * kTileK;              // 32 KB
-constexpr int kWBytes = kCols / kBox * kBoxBytes;    // 16 KB
-constexpr int kStageBytes = kXBytes + kWBytes;
 constexpr int kThreads = 256;       // two consumer warpgroups; warp 0 also loads
-constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
-static_assert(kRows * (kCols + 4) * 4 <= kStages * kStageBytes, "epilogue tile");
+constexpr int kSteps = 4;           // wgmma k-steps a stage: k32 s8 or k16 bf16, 32 bytes each
 
-using wbox::swz;  // a word's place in a 32 x 32 box (hopper.cuh)
+// A stage holds 128 bytes of each of kRows activation rows (the wgmma's N):
+// 128 int8 k (32 word rows) for W8A8 (kA8), 64 bf16 k (16 word rows) for
+// W8A16.
+template <bool kA8>
+struct Cfg {
+  static constexpr int kRows = 256;
+  static constexpr int kTileK = kA8 ? 128 : 64;
+  static constexpr int kWordRows = kTileK / 4;
+  static constexpr int kXBytes = kRows * 128;
+  static constexpr int kBoxBytes = kWordRows * kBox * 4;    // 4 KB or 2 KB
+  static constexpr int kWBytes = kCols / kBox * kBoxBytes;  // 16 KB or 8 KB
+  static constexpr int kStageBytes = kXBytes + kWBytes;     // 48 KB or 40 KB
+  static constexpr int kStages = kA8 ? 4 : 5;
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  static constexpr int kAcc = kRows / 2;  // accumulators a thread
+  using Acc = typename std::conditional<kA8, int, float>::type;
+  static_assert(kRows * (kCols + 4) * 4 <= kStages * kStageBytes, "epilogue tile");
+};
+
+using wbox::swz;  // a word's place in a 32-column box (hopper.cuh)
 }  // namespace wg
 
-// w_map is the weight's (N, K/4) int32 map, boxes of 32 x 32 words in the
+// Two int8 values of a packed word as one bf16x2 register, exactly: bytes
+// (0, 1) of w for sel0 = 0x7650, (2, 3) for sel0 = 0x7652, the lower byte in
+// the low half. wx = w ^ 0x80808080 holds each q as u = q + 128; a byte
+// permuted under the f32 exponent of 2^23 (0x4B0000uu) is 2^23 + u, and
+// 2^23 + 128 less is q exactly. |q| <= 128 has at most 8 significant bits,
+// so the f32's upper half is q's bf16 bit for bit, and a third permute packs
+// the pair (cvt.rn.bf16x2.f32 would round nothing here). Instructions a
+// register: 1 LOP3 (the bias; the other two bytes of the word are the
+// partner lane's), 2 PRMT, 2 FADD, 1 PRMT, all full-rate instructions.
+__device__ __forceinline__ uint32_t s8_pair_bf16(uint32_t w, uint32_t sel0) {
+  const uint32_t wx = w ^ 0x80808080u;
+  const float lo = __uint_as_float(__byte_perm(wx, 0x4B000000u, sel0)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(wx, 0x4B000000u, sel0 + 1)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// W8A8 (kA8; x_map: xq int8) or W8A16 (x_map: bf16 x). w_map is the
+// weight's (N, K/4) int32 map, boxes of 32 columns x kWordRows words in the
 // 128-byte swizzle, when N % 4 == 0 (w_tma); otherwise warp 0 copies the
-// words itself, 4 bytes a cp.async.
-template <typename OutT>
+// words itself, 4 bytes a cp.async. rs: W8A8's row scales.
+template <bool kA8, typename OutT>
 __global__ void __launch_bounds__(wg::kThreads, 1)
-s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
-                const __grid_constant__ CUtensorMap w_map, int w_tma,
-                const uint32_t* __restrict__ w, const float* __restrict__ scale,
-                const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n) {
+wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+             const __grid_constant__ CUtensorMap w_map, int w_tma,
+             const uint32_t* __restrict__ w, const float* __restrict__ scale,
+             const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n) {
   using namespace wg;
+  using C = Cfg<kA8>;
+  constexpr int kRows = C::kRows, kXBytes = C::kXBytes;
   extern __shared__ uint8_t smem_raw[];
   // 1024-aligned for the 128-byte swizzle; offset from the __shared__ array
   // so that accesses compile to shared-memory loads, not generic ones
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
-  uint64_t* empty = full + kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
+  uint64_t* empty = full + C::kStages;
   const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * kRows;
-  const int kw = k / 4, tiles = (k + kTileK - 1) / kTileK;
+  const int kw = k / 4, tiles = (k + C::kTileK - 1) / C::kTileK;
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < C::kStages; ++s) {
       // the TMA bytes' arrival, and each lane's cp.asyncs where they copy the weights
       mbar_init(&full[s], w_tma ? 1 : 1 + 32);
       mbar_init(&empty[s], 8);  // one arrival a consumer warp
@@ -663,27 +720,28 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   // Warp 0 loads tile t into stage t % kStages, once every warp has released
   // the tile that stage held (kStages tiles before).
   auto produce = [&](int t) {
-    const int s = t % kStages;
-    if (lane == 0 && t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+    const int s = t % C::kStages;
+    if (lane == 0 && t >= C::kStages) mbar_wait(&empty[s], ((t / C::kStages) - 1) & 1);
     __syncwarp();
-    uint8_t* st = smem + s * kStageBytes;
+    uint8_t* st = smem + s * C::kStageBytes;
     if (lane == 0) {
-      mbar_arrive_expect_tx(&full[s], kXBytes + (w_tma ? kWBytes : 0));
-      tma_load_2d(st, &x_map, &full[s], t * kTileK, m0);
+      mbar_arrive_expect_tx(&full[s], kXBytes + (w_tma ? C::kWBytes : 0));
+      tma_load_2d(st, &x_map, &full[s], t * C::kTileK, m0);
       if (w_tma) {
 #pragma unroll
         for (int b = 0; b < kCols / kBox; ++b)
-          tma_load_2d(st + kXBytes + b * kBoxBytes, &w_map, &full[s], n0 + b * kBox,
-                      t * kWordRows);
+          tma_load_2d(st + kXBytes + b * C::kBoxBytes, &w_map, &full[s], n0 + b * kBox,
+                      t * C::kWordRows);
       }
     }
-    if (!w_tma) {  // 32 word rows x 128 columns, into the boxes' swizzled layout
-      for (int c = lane; c < kWordRows * kCols; c += 32) {
+    if (!w_tma) {  // kWordRows word rows x 128 columns, into the boxes' swizzled layout
+      for (int c = lane; c < C::kWordRows * kCols; c += 32) {
         const int r = c / kCols, col = c % kCols;
-        const int wr = t * kWordRows + r;
+        const int wr = t * C::kWordRows + r;
         const bool in = wr < kw && n0 + col < n;
-        uint32_t* dst = reinterpret_cast<uint32_t*>(st + kXBytes + (col / kBox) * kBoxBytes) +
-                        swz(r, col % kBox);
+        uint32_t* dst =
+            reinterpret_cast<uint32_t*>(st + kXBytes + (col / kBox) * C::kBoxBytes) +
+            swz(r, col % kBox);
         cp_async4(dst, in ? w + (size_t)wr * n + n0 + col : w, in ? 4 : 0);
       }
       cp_async_arrive(&full[s]);
@@ -691,7 +749,7 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   };
   const bool loader = threadIdx.x < 32;
   if (loader)
-    for (int t = 0; t < kStages - 1 && t < tiles; ++t) produce(t);
+    for (int t = 0; t < C::kStages - 1 && t < tiles; ++t) produce(t);
 
   // ------------------------------------------------------------- consumers
   const int cw = threadIdx.x / 128;  // consumer warpgroup: weight columns 64cw..
@@ -699,52 +757,64 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int g = lane / 4, t4 = lane % 4;
   const int box = cw * 2 + (warp >> 1);  // this warp's 32-column box
   const int c_lo = wbox::col(warp, g), c_hi = wbox::col(warp, g + 8);
-  int acc[128];
+  // W8A16: this lane's k pair of a word, bytes (0, 1) or (2, 3)
+  const uint32_t sel = (t4 & 1) ? 0x7652u : 0x7650u;
+  typename C::Acc acc[C::kAcc];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  for (int i = 0; i < C::kAcc; ++i) acc[i] = 0;
 
-  // A fragments of tile t (rows g, g + 8 of this warp; k 4t4.. and 16 + 4t4..
-  // of each 32-k step), once the stage has landed
-  auto load_a = [&](uint32_t (&a)[4][4], int t) {
-    const int s = t % kStages;
-    mbar_wait(&full[s], (t / kStages) & 1);
-    const uint32_t* wb =
-        reinterpret_cast<const uint32_t*>(smem + s * kStageBytes + kXBytes + box * kBoxBytes);
+  // A fragments of tile t (rows g, g + 8 of this warp), once the stage has
+  // landed. W8A8, k32 step ks: word rows 8ks + t4 and + 4 (k 4t4.. and
+  // 16 + 4t4..), the words as they are. W8A16, k16 step ks: word rows
+  // 4ks + t4/2 and + 2 (k 2t4, 2t4 + 1 and 2t4 + 8, 2t4 + 9), two bytes of
+  // each word converted to bf16: each word feeds two lanes, which both load
+  // it (one broadcast read).
+  auto load_a = [&](uint32_t (&a)[kSteps][4], int t) {
+    const int s = t % C::kStages;
+    mbar_wait(&full[s], (t / C::kStages) & 1);
+    const uint32_t* wb = reinterpret_cast<const uint32_t*>(smem + s * C::kStageBytes + kXBytes +
+                                                           box * C::kBoxBytes);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const int r0 = ks * 8 + t4, r1 = r0 + 4;
-      a[ks][0] = wb[swz(r0, c_lo)];
-      a[ks][1] = wb[swz(r0, c_hi)];
-      a[ks][2] = wb[swz(r1, c_lo)];
-      a[ks][3] = wb[swz(r1, c_hi)];
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int r0 = kA8 ? ks * 8 + t4 : ks * 4 + (t4 >> 1), r1 = r0 + (kA8 ? 4 : 2);
+      const uint32_t words[4] = {wb[swz(r0, c_lo)], wb[swz(r0, c_hi)], wb[swz(r1, c_lo)],
+                                 wb[swz(r1, c_hi)]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[ks][i] = kA8 ? words[i] : s8_pair_bf16(words[i], sel);
     }
   };
-  auto issue = [&](uint32_t (&a)[4][4], int t) {
-    const uint64_t db = gmma_desc(smem_u32(smem + (t % kStages) * kStageBytes), 16, 8 * 128,
-                                  gmma_layout(128));
+  auto issue = [&](uint32_t (&a)[kSteps][4], int t) {
+    const uint64_t db = gmma_desc(smem_u32(smem + (t % C::kStages) * C::kStageBytes), 16,
+                                  8 * 128, gmma_layout(128));
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs_s8_n256(acc, a[ks], db + 2 * ks, 1);  // +32 B of k
+    for (int ks = 0; ks < kSteps; ++ks) {  // +32 bytes of k a step
+      if constexpr (kA8) {
+        wgmma_rs_s8_n256(acc, a[ks], db + 2 * ks, 1);
+      } else {
+        wgmma_rs_bf16_n256<0>(acc, a[ks], db + 2 * ks, 1);
+      }
+    }
     wgmma_commit();
   };
   // tile t's products are done: release its stage, and warp 0 refills it
   // with tile t + kStages once the other warps have released it too
   auto release = [&](int t) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[t % kStages]);
-    if (loader && t + kStages - 1 < tiles) produce(t + kStages - 1);
+    if (lane == 0) mbar_arrive(&empty[t % C::kStages]);
+    if (loader && t + C::kStages - 1 < tiles) produce(t + C::kStages - 1);
   };
   // one tile's products stay in flight while the next tile's fragments load:
   // a0 and a1 alternate, and a buffer is reloaded only after the products
   // that read it have completed
-  uint32_t a0[4][4], a1[4][4];
+  uint32_t a0[kSteps][4], a1[kSteps][4];
   load_a(a0, 0);
   for (int t = 0; t < tiles; t += 2) {
     issue(a0, t);
     if (t > 0) {
       wgmma_wait<1>();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) fence_regs(a1[ks]);
+      for (int ks = 0; ks < kSteps; ++ks) fence_regs(a1[ks]);
       release(t - 1);
     }
     if (t + 1 < tiles) {
@@ -752,7 +822,7 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       issue(a1, t + 1);
       wgmma_wait<1>();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) fence_regs(a0[ks]);
+      for (int ks = 0; ks < kSteps; ++ks) fence_regs(a0[ks]);
       release(t);
       if (t + 2 < tiles) load_a(a0, t + 2);
     }
@@ -760,13 +830,14 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   wgmma_wait<0>();
   fence_regs(acc);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < kSteps; ++ks) {
     fence_regs(a0[ks]);
     fence_regs(a1[ks]);
   }
   release(tiles - 1);
 
-  // epilogue: (float)acc * scale[col] * rs[row], staged row-major in the ring
+  // epilogue: acc * scale[col] (* rs[row] for W8A8) in f32, in that order,
+  // staged row-major in the ring
   __syncthreads();  // both consumer warpgroups are done with the ring
   constexpr int kStride = kCols + 16 / (int)sizeof(OutT);  // padded row, 16-byte aligned
   OutT* tile = reinterpret_cast<OutT*>(smem);
@@ -778,14 +849,18 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     csc[h] = n0 + cls[h] < n ? scale[n0 + cls[h]] : 0.f;
   }
 #pragma unroll
-  for (int c = 0; c < 32; ++c) {  // rows 8c + 2t4 and + 1
+  for (int c = 0; c < kRows / 8; ++c) {  // rows 8c + 2t4 and + 1
     const int rl = c * 8 + t4 * 2;
-    const float r0 = m0 + rl < m ? rs[m0 + rl] : 0.f;
-    const float r1 = m0 + rl + 1 < m ? rs[m0 + rl + 1] : 0.f;
+    float r0 = 1.f, r1 = 1.f;
+    if constexpr (kA8) {
+      r0 = m0 + rl < m ? rs[m0 + rl] : 0.f;
+      r1 = m0 + rl + 1 < m ? rs[m0 + rl + 1] : 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
-      const float v = (float)acc[4 * c + e] * csc[h] * ((e & 1) ? r1 : r0);
+      const float v = kA8 ? (float)acc[4 * c + e] * csc[h] * ((e & 1) ? r1 : r0)
+                          : (float)acc[4 * c + e] * csc[h];
       tile[(rl + (e & 1)) * kStride + cls[h]] = from_float<OutT>(v);
     }
   }
@@ -793,7 +868,7 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   constexpr int kVec = 16 / (int)sizeof(OutT);  // elements a 16-byte store
   constexpr int kChunks = kCols / kVec;
   const bool vec = (n % kVec) == 0;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += 256) {
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
     const int rl = c / kChunks, cl = (c % kChunks) * kVec;
     const int row = m0 + rl, col = n0 + cl;
     if (row >= m || col >= n) continue;
@@ -807,58 +882,39 @@ s8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-template <typename OutT>
-cudaError_t launch_s8_wgmma(const int8_t* xq, const uint32_t* w, const float* scale,
-                            const float* rs, OutT* out, int m, int k, int n, cudaStream_t s) {
+// xs: xq (M, K) int8 for W8A8, bf16 rows for W8A16
+template <bool kA8, typename OutT>
+cudaError_t launch_wgmma(const void* xs, const uint32_t* w, const float* scale,
+                         const float* rs, OutT* out, int m, int k, int n, cudaStream_t s) {
   using namespace wg;
+  using C = Cfg<kA8>;
   CUtensorMap x_map, w_map;
   const cuuint64_t x_dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
-  const cuuint64_t x_strides[1] = {(cuuint64_t)k};
-  const cuuint32_t x_box[2] = {kTileK, kRows};
-  if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, x_dims, x_strides, x_box,
-                  CU_TENSOR_MAP_SWIZZLE_128B))
+  const cuuint64_t x_strides[1] = {(cuuint64_t)k * (kA8 ? 1 : 2)};
+  const cuuint32_t x_box[2] = {C::kTileK, C::kRows};
+  if (!encode_map(&x_map, kA8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  2, xs, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   // TMA rows must be 16-byte strided: the weight's when N % 4 == 0
   const int w_tma = (n % 4) == 0;
   const cuuint64_t w_dims[2] = {(cuuint64_t)n, (cuuint64_t)(k / 4)};
   const cuuint64_t w_strides[1] = {(cuuint64_t)n * 4};
-  const cuuint32_t w_box[2] = {kBox, kWordRows};
+  const cuuint32_t w_box[2] = {kBox, C::kWordRows};
   if (w_tma && !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, w_dims, w_strides,
                            w_box, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   if (!w_tma) w_map = x_map;  // unused
-  static bool smem_set = false;
+  static bool smem_set = false;  // per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        s8_wgmma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        wgmma_kernel<kA8, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  const dim3 grid((n + kCols - 1) / kCols, (m + kRows - 1) / kRows);
-  s8_wgmma_kernel<OutT><<<grid, kThreads, kSmem, s>>>(x_map, w_map, w_tma, w, scale, rs, out,
-                                                      m, k, n);
+  const dim3 grid((n + kCols - 1) / kCols, (m + C::kRows - 1) / C::kRows);
+  wgmma_kernel<kA8, OutT><<<grid, kThreads, C::kSmem, s>>>(x_map, w_map, w_tma, w, scale, rs,
+                                                          out, m, k, n);
   return cudaGetLastError();
-}
-
-// ----------------------------------------------------------------------- W8A16
-template <typename T>
-__global__ void __launch_bounds__(128)
-w8a16_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
-             const float* __restrict__ scale, T* __restrict__ out, int m,
-             int kw, int n) {
-  const int col = blockIdx.x * 128 + threadIdx.x;
-  const int row = blockIdx.y;
-  if (col >= n) return;
-  const T* xr = x + (size_t)row * kw * 4;
-  float acc = 0.f;
-  for (int r = 0; r < kw; ++r) {
-    const uint32_t word = w[(size_t)r * n + col];
-#pragma unroll
-    for (int byte = 0; byte < 4; ++byte)
-      acc += to_float(xr[4 * r + byte]) *
-             (float)(int8_t)((word >> (8 * byte)) & 0xffu);
-  }
-  out[(size_t)row * n + col] = from_float<T>(acc * scale[col]);
 }
 
 template <typename T, WLayout L = WLayout::kWords,
@@ -876,8 +932,8 @@ cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
   T* o = static_cast<T*>(out);
   if constexpr (L == WLayout::kWords) {
     if (m > 16)
-      return launch_s8_wgmma<T>(static_cast<const int8_t*>(xq),
-                                static_cast<const uint32_t*>(w), scale, rs, o, m, k, n, s);
+      return launch_wgmma<true, T>(xq, static_cast<const uint32_t*>(w), scale, rs, o, m, k, n,
+                                   s);
     s8_skinny_kernel<T><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
         x32, w, scale, rs, o, m, kw, n);
   } else {  // K8 at M > 16 (at M <= 16 it is launch_s8_stream)
@@ -885,6 +941,22 @@ cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
     s8_tiled_kernel<T, L><<<grid, 128, 0, s>>>(x32, w, scale, rs, o, m, kw, n);
   }
   return cudaGetLastError();
+}
+
+// W8A16: f32 x rounded to bf16 into xb first; then the wgmma kernel above
+// 16 rows, stream_matmul.cu's row-word kernel at up to 16
+template <typename T>
+cudaError_t launch_w8a16(const T* x, __nv_bfloat16* xb, const uint32_t* w, const float* scale,
+                         T* out, int m, int k, int n, cudaStream_t s) {
+  const void* xs = x;
+  if constexpr (std::is_same<T, float>::value) {
+    const cudaError_t e = round_to_bf16(x, xb, (size_t)m * k, s);
+    if (e != cudaSuccess) return e;
+    xs = xb;
+  }
+  if (m > 16) return launch_wgmma<false, T>(xs, w, scale, nullptr, out, m, k, n, s);
+  return static_cast<cudaError_t>(
+      mmor_wp_matmul(xs, w, scale, out, m, k, n, 8, std::is_same<T, __nv_bfloat16>::value, s));
 }
 
 }  // namespace
@@ -948,23 +1020,21 @@ extern "C" int mmor_int8_matmul_w8b(const void* x, void* xq, void* row_scale, co
              : (int)launch_w8a8<float, L, R>(x, xq, row_scale, w, sc, out, m, k, n, s);
 }
 
-// W8A16: x (M, K) bf16 (x_bf16 = 1) or f32, w and scale as above, out (M, N)
-// in x's dtype. K must be a multiple of 4.
-extern "C" int mmor_int8_matmul_w8a16(const void* x, const void* w,
-                                      const void* scale, void* out, int m,
-                                      int k, int n, int x_bf16, void* stream) {
-  if (k % 4 != 0) return (int)cudaErrorInvalidValue;
+// W8A16: x (M, K) bf16 (x_bf16 = 1) or f32; xs (M, K) bf16 scratch that
+// the rounding of f32 x fills (unused for bf16 x); w (K/4, N) int32 packed
+// by pack_int8_rows, scale (N,) f32; out (M, N) in x's dtype. K must be a
+// multiple of 64.
+extern "C" int mmor_int8_matmul_w8a16(const void* x, void* xs, const void* w, const void* scale,
+                                      void* out, int m, int k, int n, int x_bf16,
+                                      void* stream) {
+  if (k % 64 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((n + 127) / 128, m);
+  using bf16 = __nv_bfloat16;
   const uint32_t* w32 = static_cast<const uint32_t*>(w);
   const float* sc = static_cast<const float*>(scale);
-  if (x_bf16)
-    w8a16_kernel<__nv_bfloat16><<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w32, sc,
-        static_cast<__nv_bfloat16*>(out), m, k / 4, n);
-  else
-    w8a16_kernel<float><<<grid, 128, 0, s>>>(static_cast<const float*>(x), w32,
-                                             sc, static_cast<float*>(out), m,
-                                             k / 4, n);
-  return (int)cudaGetLastError();
+  bf16* xb = static_cast<bf16*>(xs);
+  return x_bf16 ? (int)launch_w8a16<bf16>(static_cast<const bf16*>(x), xb, w32, sc,
+                                          static_cast<bf16*>(out), m, k, n, s)
+                : (int)launch_w8a16<float>(static_cast<const float*>(x), xb, w32, sc,
+                                           static_cast<float*>(out), m, k, n, s);
 }

@@ -1,6 +1,9 @@
 // K10a: W8A16 on an unpacked int8 weight, K10b: W8A16 on slab-packed int8
 // or int4 words, and K10c's bf16 mode: W8A16 on row-packed int8 words, the
-// kernels of the weight-stream microbenchmarks.
+// kernels of the weight-stream microbenchmarks. The row-word instantiation
+// is also K2's W8A16 branch at up to 16 rows (int8_matmul.cu calls
+// mmor_wp_matmul), which serves decode steps: the lm_head at
+// quant_int8_mxu=False and every projection of the per-op int8 path there.
 //
 // Replaces tools/perf/bench_w8a16.py::w8a16_matmul (_w8a16_kernel, the
 // pl.pallas_call at :75), tools/perf/bench_packed.py::wp_matmul
@@ -15,11 +18,18 @@
 //
 // Design: bf16 mma.sync.m16n8k16 with f32 accumulation, the TPU kernels'
 // bf16 product. x arrives as bf16 (the wrapper's cast, as on the TPU); each
-// weight value converts exactly to bf16 in registers. A block of eight warps
-// owns 32 columns and one 16-row m-tile (grid.y walks the m-tiles); its warps
-// split the weight's word rows, four word rows (one per thread quad lane) a
-// k-step, four k-steps of loads in flight before their products, and their
-// partial sums meet in shared memory; out = acc * scale in f32, cast to x's
+// weight value converts exactly to bf16 in registers (by I2F: the byte
+// permutes of int8_matmul.cu's s8_pair_bf16 measured no faster here, where
+// the loads' latency sets the time). A block of eight warps (sixteen,
+// below) owns 32 columns and one 16-row m-tile (grid.y walks the m-tiles);
+// its warps split the weight's word rows, four word rows (one per thread
+// quad lane) a k-step, four k-steps of loads in flight before their
+// products, and their partial sums meet in shared memory. Where the column blocks are too few
+// to fill the card (K2's decode widths: 4096 columns are 128 blocks), a
+// block is sixteen warps, twice the loads in flight an SM (at 8 rows on an
+// H100, chip_smoke.py's phase 2: 11264 x 4096 from 0.032 to 0.026 ms,
+// 4096 x 4096 from 0.0106 to 0.0099; eight k-steps in flight a warp
+// instead, or a cluster of blocks splitting K, were slower). out = acc * scale in f32, cast to x's
 // dtype. The mma does not care which real k its 16 k slots hold as long as A
 // and B agree, so each thread's B registers take the values of one weight
 // word and its A registers the x entries of the same k: every weight word is
@@ -69,9 +79,9 @@ using Slab4 = Format<WLayout::kWords, 4>;  // K10b w4p
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-constexpr int kWarps = 8;
 constexpr int kCols = 32;
 constexpr int kUnroll = 4;  // k-steps a warp loads before its products
+constexpr int kFill = 2 * 132;  // blocks of 8 warps that fill the card twice over
 
 // The A registers of k-step (r, j): rows g and g + 8 of the m-tile at the
 // k of values 4j..4j+3 of word row r (0 for rows past M). x is in word
@@ -92,7 +102,7 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const uint16_t* x_lo,
 // n0 + 4g .. 4g + 3, one in each 8-column mma tile nt (so one 16-byte load
 // fetches a thread's B words for all four tiles); the output of tile nt at
 // mma column c is column n0 + 4c + nt.
-template <typename Fm, typename OutT>
+template <typename Fm, typename OutT, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
 stream_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
               const float* __restrict__ scale, OutT* __restrict__ out, int m, int k, int n) {
@@ -161,21 +171,29 @@ stream_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
   }
 }
 
+template <typename Fm, int kWarps>
+int launch_warps(const void* x, const void* w, const void* scale, void* out, int m, int k,
+                 int n, int out_bf16, cudaStream_t s) {
+  const dim3 grid((n + kCols - 1) / kCols, (m + 15) / 16);
+  const uint16_t* xb = static_cast<const uint16_t*>(x);
+  const float* sc = static_cast<const float*>(scale);
+  if (out_bf16)
+    stream_kernel<Fm, __nv_bfloat16, kWarps><<<grid, kWarps * 32, 0, s>>>(
+        xb, w, sc, static_cast<__nv_bfloat16*>(out), m, k, n);
+  else
+    stream_kernel<Fm, float, kWarps><<<grid, kWarps * 32, 0, s>>>(
+        xb, w, sc, static_cast<float*>(out), m, k, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename Fm>
 int launch(const void* x, const void* w, const void* scale, void* out, int m, int k, int n,
            int out_bf16, void* stream) {
   if (k % (4 * Fm::kVals) != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kCols - 1) / kCols, (m + 15) / 16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint16_t* xb = static_cast<const uint16_t*>(x);
-  const float* sc = static_cast<const float*>(scale);
-  if (out_bf16)
-    stream_kernel<Fm, __nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
-        xb, w, sc, static_cast<__nv_bfloat16*>(out), m, k, n);
-  else
-    stream_kernel<Fm, float><<<grid, kWarps * 32, 0, s>>>(xb, w, sc, static_cast<float*>(out),
-                                                         m, k, n);
-  return (int)cudaGetLastError();
+  const int blocks = ((n + kCols - 1) / kCols) * ((m + 15) / 16);
+  return blocks < kFill ? launch_warps<Fm, 16>(x, w, scale, out, m, k, n, out_bf16, s)
+                        : launch_warps<Fm, 8>(x, w, scale, out, m, k, n, out_bf16, s);
 }
 
 }  // namespace

@@ -39,7 +39,7 @@ SIGNATURES = {
     "mmor_decode_attention_layer": (_P,) * 7 + (_I,) * 4 + (_F, _I, _I, _P),
     "mmor_int8_matmul_w8a8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mmor_int8_matmul_bytes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mmor_int8_matmul_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mmor_int8_matmul_w8a16": (_P,) * 5 + (_I,) * 4 + (_P,),
     "mmor_int4_matmul": (_P,) * 6 + (_I,) * 6 + (_P,),
     "mmor_mega_decode": (_P,) * 38 + (_I,) * 11 + (_F, _F, _P),
     "mmor_mega_project": (_P,) * 6 + (_I,) * 15 + (_P,),

@@ -21,6 +21,8 @@ import torch
 from mmor_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# the head dims K4's and K7's kernel takes (csrc/decode_attention.cu)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _require_cuda_inputs(name: str, tensors: dict, dtype: torch.dtype) -> None:
@@ -259,7 +261,9 @@ def decode_attention_packed_stack(
 
     The cache layout is the port's own (see ``csrc/decode_attention.cu``):
     int8 rows of D channels, not the TPU's (D/4, T) int32 words.
-    CPU: ``decode_attention_packed_stack_plain``. CUDA: the kernel, on bf16 q."""
+    CPU: ``decode_attention_packed_stack_plain``. CUDA: the kernel, on bf16 q
+    (head dims ``HEAD_DIMS``): a cluster of blocks a (batch, head) splitting
+    T, the positions outside the row's first and last valid ones not read."""
     b, h, _, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
@@ -280,8 +284,8 @@ def decode_attention_packed_stack(
         raise ValueError("decode_attention_packed_stack: inconsistent shapes")
     if not 0 <= layer_idx < n_layers:
         raise IndexError(f"layer_idx {layer_idx} outside [0, {n_layers})")
-    if d % 16 or d > 256:
-        raise ValueError(f"decode_attention_packed_stack: head_dim {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention_packed_stack: head_dim {d} not in {HEAD_DIMS}")
     mask = _build.aligned(kv_mask.to(torch.int32))
     if mask.shape != (b, t_cap):
         raise ValueError("decode_attention_packed_stack: kv_mask must be (B, T)")
@@ -351,8 +355,8 @@ def decode_attention_packed(
             or k_scale.shape != (b, h, t_cap) or v_scale.shape != k_scale.shape
             or q.shape[2] != 1):
         raise ValueError(f"{name}: inconsistent shapes")
-    if d % 16 or d > 256:
-        raise ValueError(f"{name}: head_dim {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
     mask = _build.aligned(kv_mask.to(torch.int32))
     if mask.shape != (b, t_cap):
         raise ValueError(f"{name}: kv_mask must be (B, T)")

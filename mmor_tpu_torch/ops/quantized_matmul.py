@@ -83,10 +83,15 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     ``scale`` (N,) f32 -> (M, N) in x.dtype.
 
     CPU: ``int8_matmul_packed_plain``. CUDA: the ``csrc/int8_matmul.cu``
-    kernels — with ``int8_mxu`` a row-quantization kernel (``quantize_rows``'
-    arithmetic) and W8A8 on the int8 tensor cores (``mma.sync`` at up to 16
-    rows, ``wgmma`` fed by TMA above), else a W8A16 FMA kernel.
-    Counts its launches in ``int8_matmul_packed.launches``."""
+    kernels (bf16 or f32 x; K a multiple of 64). With ``int8_mxu``, W8A8: a
+    row-quantization kernel (``quantize_rows``' arithmetic), then the int8
+    tensor cores (``mma.sync`` at up to 16 rows, ``wgmma`` fed by TMA
+    above). Otherwise W8A16, the TPU branch's numerics: x in bf16 (f32 x
+    rounded by a pre-pass), exact bf16 products summed in f32 on the
+    tensor cores, the int8 weights converted in registers (``wgmma`` above
+    16 rows, ``stream_matmul.cu``'s row-word ``mma.sync`` kernel at up to
+    16). Counts its launches in ``int8_matmul_packed.launches`` (W8A8) and
+    ``.a16_launches`` (W8A16)."""
     m, k = x.shape
     kp, n = w_p.shape
     if kp * 4 != k:
@@ -99,13 +104,13 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
         raise TypeError(f"int8_matmul_packed: x dtype {x.dtype}")
     if w_p.dtype != torch.int32 or scale.dtype != torch.float32 or scale.shape != (n,):
         raise TypeError("int8_matmul_packed: w_p must be int32 (K/4, N), scale f32 (N,)")
+    if k % 64:
+        raise ValueError(f"int8_matmul_packed: the kernels need K % 64 == 0, K={k}")
     lib = _build.library()
     xc, w_p, scale = _build.aligned(x), _build.aligned(w_p), _build.aligned(scale)
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
     if int8_mxu:
-        if k % 64:
-            raise ValueError(f"int8_matmul_packed: W8A8 kernel needs K % 64 == 0, K={k}")
         # scratch for the activation quantization the kernel runs first
         xq = torch.empty(m, k, dtype=torch.int8, device=x.device)
         rs = torch.empty(m, dtype=torch.float32, device=x.device)
@@ -113,15 +118,21 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
             _build.ptr(xc), _build.ptr(xq), _build.ptr(rs), _build.ptr(w_p),
             _build.ptr(scale), _build.ptr(out), m, k, n, is_bf16, _build.stream())
     else:
+        # scratch for the bf16 rounding of f32 x
+        xs = None if is_bf16 else torch.empty(m, k, dtype=torch.bfloat16, device=x.device)
         err = lib.mmor_int8_matmul_w8a16(
-            _build.ptr(xc), _build.ptr(w_p), _build.ptr(scale), _build.ptr(out), m, k, n,
-            is_bf16, _build.stream())
+            _build.ptr(xc), None if xs is None else _build.ptr(xs), _build.ptr(w_p),
+            _build.ptr(scale), _build.ptr(out), m, k, n, is_bf16, _build.stream())
     _build.check(err, "int8_matmul_packed")
-    int8_matmul_packed.launches += 1
+    if int8_mxu:
+        int8_matmul_packed.launches += 1
+    else:
+        int8_matmul_packed.a16_launches += 1
     return out
 
 
 int8_matmul_packed.launches = 0
+int8_matmul_packed.a16_launches = 0
 
 
 # ------------------------------------------------------------------ K8

@@ -12,7 +12,8 @@ JAX function two ways:
   is that arithmetic, so the two are equal bit for bit;
 - the TPU kernel's body (``_packed4_kernel`` with ``int8_mxu=False``),
   reached through ``int4_matmul_packed`` with the module's ``jax.devices``
-  reporting a TPU and its ``pl.pallas_call`` in interpret mode. The body
+  reporting a TPU and its ``pl.pallas_call`` in interpret mode
+  (``pallas_tpu_view``, shared with ``test_torch_ops.py``'s K2 tests). The body
   rounds x to bf16 and folds the nibbles' +8 bias as dot(x, u) - 8 rowsum(x)
   in f32, where the port (and its CUDA kernels) removes the bias exactly.
   With bf16 x the two differ by that fold alone: rel_l2 <= 1e-4 (measured
@@ -25,18 +26,14 @@ JAX function two ways:
 Rows 5 (decode-sized) and 20, each with a zero row.
 """
 
-import functools
-import types
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from mmor_tpu.ops import quantized_matmul as jqmm
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
+from pallas_tpu_view import take_tpu_branch
 from torch_threads import share_cores
 
 share_cores()  # parallel test workers oversubscribe the cores
@@ -86,15 +83,8 @@ def port_w4a16(x, w_p, scale, dtype: str) -> np.ndarray:
 @pytest.fixture
 def tpu_body(monkeypatch):
     """JAX's ``int4_matmul_packed`` taking its TPU branch, the Pallas body
-    in interpret mode (the module's ``jax`` and ``pl`` names replaced by
-    views that differ only in ``devices`` and ``pallas_call``)."""
-    fake_jax = types.SimpleNamespace(**{k: getattr(jax, k) for k in ("lax", "nn", "vmap")},
-                                     ShapeDtypeStruct=jax.ShapeDtypeStruct,
-                                     devices=lambda: [types.SimpleNamespace(platform="tpu")])
-    fake_pl = types.SimpleNamespace(**{k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")})
-    fake_pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
-    monkeypatch.setattr(jqmm, "jax", fake_jax)
-    monkeypatch.setattr(jqmm, "pl", fake_pl)
+    in interpret mode (``pallas_tpu_view``)."""
+    take_tpu_branch(monkeypatch, jqmm)
 
 
 @pytest.mark.parametrize("m,dtype", CASES)

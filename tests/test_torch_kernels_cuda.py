@@ -16,7 +16,12 @@ projections, both widths and R 1, 8, 14, 16, 17 and 136, and at ragged
 edges (N not a multiple of the strip, N % 4 != 0 by cp.async, odd chunk
 and group counts, chunks that split an int4 group, two slabs), with K
 split across a cluster of 2-5 blocks (uneven runs of units), and the plans
-it refuses; K7's f32 and bf16 scales and a fully masked row, K8's stream
+it refuses; K7's f32 and bf16 scales and a fully masked row, K4 and K7
+at the edges of their clusters' ranks (8 ranks, T off a rank's span, rows
+with one valid position or none, masks with holes, T = 1, head dims 16
+to 256, a head dim they refuse); K2's W8A16 branch at 1, 13, 16, 17, 257,
+300 and 5667 rows, the lm_head's 32000 columns, N % 4 != 0, K % 128 != 0,
+f32 x, and K % 64 != 0 refused; K8's stream
 kernel at one row and at 16, its weight by TMA, by cp.async (N % 16 != 0)
 and byte by byte (N % 4 != 0), one k tile and a ragged last one, and its
 tiled kernel above 16 rows, K10a and K10b's ragged N and M above
@@ -38,7 +43,9 @@ x (x rounded to bf16, as on the TPU), and K5's weight core (the same exact int32
 folded in the same order with the same f32 roundings as
 ``_w4a8_chunks``/``_w8a8_chunks``, and the same epilogue expressions);
 W8A16 (K2's, K10a, K10b) rel_l2 <= 1e-3 (f32 sums
-in another order, one bf16 rounding; 1e-5 in f32); K7 rel_l2 <= 3e-4 (f32
+in another order, one bf16 rounding; 1e-5 in f32; K2's kernels round f32 x
+to bf16 first, as the TPU branch does, so f32 cases are held to the plain
+version on the rounded x, and within 5e-3 of it on the f32 x); K7 rel_l2 <= 3e-4 (f32
 sums in another order, one rounding to the output's dtype; the kernel on
 bf16 copies of f32 scales must miss it); K5 x_out rel_l2 <= 2e-3 and its new K/V columns identical in
 >= 99.9% of entries, never more than 1 apart (f32 sums in another order in
@@ -255,10 +262,61 @@ def test_int8_matmul_kernel(dev, m, k, n, dtype):
     torch.cuda.synchronize()
     assert Q.int8_matmul_packed.launches == before + 1
     np.testing.assert_array_equal(out.float().cpu().numpy(), ref.float().cpu().numpy())
+    before16 = Q.int8_matmul_packed.a16_launches
     out16 = Q.int8_matmul_packed(x, w_p, scale, int8_mxu=False)
-    ref16 = Q.int8_matmul_packed_plain(x, w_p, scale, int8_mxu=False)
+    # the W8A16 kernels round f32 x to bf16, as the TPU branch does: the
+    # plain version on the same rounded x
+    xr = x.to(torch.bfloat16).to(dtype)
+    ref16 = Q.int8_matmul_packed_plain(xr, w_p, scale, int8_mxu=False)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_packed.a16_launches == before16 + 1
+    assert Q.int8_matmul_packed.launches == before + 1
     assert out16.dtype == dtype
     assert rel_l2(out16, ref16) <= 1e-3
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1, 4096, 4096, torch.bfloat16),     # the row-word kernel at one row
+    (16, 4096, 4100, torch.bfloat16),    # its last row count, N off its 32-column blocks
+    (8, 4096, 32000, torch.bfloat16),    # the lm_head at decode
+    (13, 192, 70, torch.float32),        # N % 4 != 0, f32 x rounded by the pre-pass
+    (17, 4160, 4100, torch.bfloat16),    # the wgmma kernel's first row count, K % 128 != 0
+    (300, 256, 90, torch.bfloat16),      # N % 4 != 0: cp.async words, a ragged tile
+    (257, 128, 136, torch.float32),      # two 256-row tiles, the second of one row
+    (5667, 4160, 4100, torch.bfloat16),  # phase 14's prefill rows, ragged
+])
+def test_int8_matmul_w8a16_kernel(dev, m, k, n, dtype):
+    """K2's W8A16 branch: the plain version (the JAX CPU path) within 1e-3
+    on bf16 x; on f32 x, which the kernels round to bf16 first (the TPU
+    branch's rule), within 1e-5 of the plain version on the rounded x (f32
+    sums in another order) and 5e-3 of it on the f32 x (the rounding)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    x[0] = 0
+    w_q, scale = Q.quantize_weights(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    w_p = Q.pack_int8_rows(w_q)
+    before, before8 = Q.int8_matmul_packed.a16_launches, Q.int8_matmul_packed.launches
+    out = Q.int8_matmul_packed(x, w_p, scale, int8_mxu=False)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_packed.a16_launches == before + 1
+    assert Q.int8_matmul_packed.launches == before8
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert not out[0].any()
+    ref = Q.int8_matmul_packed_plain(x, w_p, scale, int8_mxu=False)
+    if dtype == torch.bfloat16:
+        assert rel_l2(out, ref) <= 1e-3
+    else:
+        rounded = Q.int8_matmul_packed_plain(x.to(torch.bfloat16).float(), w_p, scale,
+                                             int8_mxu=False)
+        assert rel_l2(out, rounded) <= 1e-5
+        assert rel_l2(out, ref) <= 5e-3
+
+
+def test_int8_matmul_w8a16_refuses_k_off_64(dev):
+    x = torch.ones(20, 4100, device=dev, dtype=torch.bfloat16)
+    w_p = torch.zeros(1025, 64, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        Q.int8_matmul_packed(x, w_p, torch.ones(64, device=dev), int8_mxu=False)
 
 
 @pytest.mark.parametrize("d,t", [(64, 200), (128, 1)])
@@ -282,6 +340,64 @@ def test_decode_attention_kernel_last_layer(dev, d, t):
     assert rel_l2(out, ref) <= 1e-2
     with pytest.raises(IndexError):
         A.decode_attention_packed_stack(q, k8, v8, ks, vs, mask, L)
+
+
+# (B, H, T, D, each row's valid [lo, hi), scale and q dtypes)
+DECODE_EDGES = {
+    "eight_ranks_one_valid": (1, 32, 1024, 128, [(500, 501)], torch.float32, torch.bfloat16),
+    "span_edges_d64": (3, 4, 1000, 64, [(37, 1000), (999, 1000), (0, 0)], torch.bfloat16,
+                       torch.float32),
+    "d256": (2, 2, 300, 256, [(0, 300), (10, 150)], torch.bfloat16, torch.bfloat16),
+    "d32": (2, 3, 130, 32, [(0, 1), (64, 130)], torch.float32, torch.bfloat16),
+    "d16": (2, 3, 130, 16, [(5, 6), (0, 0)], torch.bfloat16, torch.float32),
+    "t1": (2, 2, 1, 128, [(0, 1), (0, 0)], torch.float32, torch.bfloat16),
+    "holes": (2, 4, 700, 128, [(0, 700), (100, 600)], torch.bfloat16, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_EDGES))
+def test_decode_attention_cluster_edges(dev, case):
+    """K7 and K4 where the cluster's ranks and the skipped positions have
+    edges: 8 ranks of 128 positions, T off a rank's span, one valid position
+    (first, last, alone in T = 1), rows with no valid position (equal
+    weights over all of T, as the plain version's softmax of a constant
+    row), masks with holes inside the valid range (every other position in
+    row 0 of "holes", a 200-position gap in row 1), head dims 16 to 256.
+    K7 within K7_BOUND, K4 (the same cache as layer 1 of a stack of two)
+    within 1e-2 (its plain version rounds the weights to bf16)."""
+    b, h, t, d, rows, sdt, qdt = DECODE_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(16)
+    k8, v8 = (torch.randint(-127, 128, (2, b, h, t, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand(2, b, h, t, generator=g, device=dev) * 0.02 + 0.005).to(sdt)
+              for _ in range(2))
+    mask = torch.zeros(b, t, dtype=torch.int32, device=dev)
+    for r, (lo, hi) in enumerate(rows):
+        mask[r, lo:hi] = 1
+    if case == "holes":
+        mask[0, 1::2] = 0
+        mask[1, 200:400] = 0
+    q = randn(g, b, h, 1, d, dev=dev, dtype=qdt)
+    layer = (q, k8[1], v8[1], ks[1], vs[1], mask)
+    out = A.decode_attention_packed(*layer)
+    ref = A.decode_attention_packed_plain(*layer)
+    torch.cuda.synchronize()
+    assert out.shape == (b, h, 1, d) and out.dtype == qdt
+    assert rel_l2(out, ref) <= K7_BOUND
+    qb = q.to(torch.bfloat16)
+    stack = (qb, k8, v8, ks.to(torch.bfloat16), vs.to(torch.bfloat16), mask, 1)
+    out4 = A.decode_attention_packed_stack(*stack)
+    ref4 = A.decode_attention_packed_stack_plain(*stack)
+    torch.cuda.synchronize()
+    assert rel_l2(out4, ref4) <= 1e-2
+
+
+def test_decode_attention_refuses_head_dim_off_the_kernel(dev):
+    q = torch.zeros(1, 2, 1, 48, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 8, 48, device=dev, dtype=torch.int8)
+    sc = torch.ones(1, 2, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        A.decode_attention_packed(q, kv, kv, sc, sc, torch.ones(1, 8, device=dev))
 
 
 @pytest.mark.parametrize("m,k,n,dtype", [

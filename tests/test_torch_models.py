@@ -82,11 +82,16 @@ def tt(x):
 
 
 # --------------------------------------------------------------- LLaMA
-def _llama_case(quant: bool, fused: bool):
+def _llama_case(quant, fused: bool):
+    """``quant``: False, True (int8 weights and KV at quant_int8_mxu=False)
+    or "len1" (the same with a third row holding one valid token, the
+    shortest row the decode attention's kernel sees)."""
     base = jcfg.LlamaConfig.tiny(vocab_size=128)
-    ids = np.random.default_rng(10).integers(3, 128, (2, 12)).astype(np.int32)
-    mask = np.ones((2, 12), np.int32)
+    rows = 3 if quant == "len1" else 2
+    ids = np.random.default_rng(10).integers(3, 128, (rows, 12)).astype(np.int32)
+    mask = np.ones((rows, 12), np.int32)
     mask[1, :4] = 0  # left padding: RoPE positions differ from cache slots
+    mask[2:, :11] = 0
     shapes = jax.eval_shape(lambda: jllama.LlamaModel(base).init(
         jax.random.PRNGKey(0), input_ids=jnp.asarray(ids),
         attention_mask=jnp.asarray(mask)))
@@ -101,7 +106,7 @@ def _llama_case(quant: bool, fused: bool):
     return cfg, params, ids, mask
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["bf", "int8"])
+@pytest.mark.parametrize("quant", [False, True, "len1"], ids=["bf", "int8", "int8_len1"])
 @pytest.mark.parametrize("fused", [False, True], ids=["split", "fused_qkv"])
 def test_llama_prefill_and_decode_match_jax(quant, fused):
     cfg, params, ids, mask = _llama_case(quant, fused)
@@ -118,7 +123,7 @@ def test_llama_prefill_and_decode_match_jax(quant, fused):
     tmodel = tllama.LlamaModel(torch_cfg(cfg))
     tmodel.load_state_dict(convert_llama(params))
     with torch.no_grad():
-        bufs = tllama.alloc_kv_buffers(tmodel.cfg, 2, cap, "cpu")
+        bufs = tllama.alloc_kv_buffers(tmodel.cfg, len(ids), cap, "cpu")
         tlogits, filled = tmodel(input_ids=tt(ids), attention_mask=tt(mask),
                                  prefill_cache_buffers=bufs)
         tcache = tllama.build_cache(tmodel.cfg, filled, tt(mask), cap)

@@ -24,6 +24,7 @@ from mmor_tpu_torch.ops import attention as tattn
 from mmor_tpu_torch.ops import image_preproc as tpre
 from mmor_tpu_torch.ops import quantized_matmul as tqmm
 from mmor_tpu_torch.ops import serialization as tser
+from pallas_tpu_view import take_tpu_branch
 from torch_threads import share_cores
 
 share_cores()  # parallel test workers oversubscribe the cores
@@ -88,17 +89,84 @@ def test_weight_format_bit_exact():
                                   np.asarray(jqmm.unpack_int8_rows(jp)))
 
 
-@pytest.mark.parametrize("dtype", [np.float32])
-def test_int8_matmul_f32_dequant_matches_jax_cpu_path(dtype):
-    """int8_mxu=False is the JAX CPU path's f32 dequantization."""
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal((5, 128)).astype(dtype)
-    w_q, scale = jqmm.quantize_weights(jnp.asarray(rng.standard_normal((128, 96)) * 0.05))
-    w_p = np.array(jqmm.pack_int8_rows(w_q))
-    ref = jqmm.int8_matmul_packed(jnp.asarray(x), jnp.asarray(w_p), scale)
-    out = tqmm.int8_matmul_packed(torch.from_numpy(x), torch.from_numpy(w_p),
-                                  torch.from_numpy(np.array(scale)), int8_mxu=False)
-    assert rel_l2(out, ref) <= F32_TOL
+# K2's W8A16 branch (int8_mxu=False): x dtype, rows on both sides of the
+# kernels' 16-row switch, narrowed projection shapes (K, N); the TPU body's
+# cases take N a multiple of 128, as its column blocks need
+W8A16_TPU_CASES = [
+    pytest.param(np.float32, 5, 256, 256, id="float32-m5"),
+    pytest.param("bf16", 5, 256, 384, id="bf16-m5"),
+    pytest.param(np.float32, 20, 512, 256, id="float32-m20"),
+    pytest.param("bf16", 20, 256, 384, id="bf16-m20"),
+]
+W8A16_CASES = [pytest.param(np.float32, 5, 128, 96, id="float32"), *W8A16_TPU_CASES[1:]]
+BF16_STEP = 2.0 ** -8  # one bf16 rounding step, relative
+
+
+def w8a16_inputs(dtype, m: int, k: int, n: int, seed: int = 2):
+    """Seeded numpy (x, w_p, scale): x (m, K) with row 0 zero, its values
+    rounded to ``dtype``; N(0, 0.05) weights quantized and packed by JAX."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    x[0] = 0
+    if dtype == "bf16":
+        x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    w_q, scale = jqmm.quantize_weights(jnp.asarray(rng.standard_normal((k, n)) * 0.05))
+    return x, np.array(jqmm.pack_int8_rows(w_q)), np.array(scale)
+
+
+def w8a16_jax(x, w_p, scale, dtype) -> np.ndarray:
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    out = jqmm.int8_matmul_packed(jnp.asarray(x).astype(jdt), jnp.asarray(w_p),
+                                  jnp.asarray(scale), int8_mxu=False)
+    assert out.dtype == jdt and out.shape == (x.shape[0], w_p.shape[1])
+    return np.asarray(out.astype(jnp.float32))
+
+
+def w8a16_port(x, w_p, scale, dtype) -> np.ndarray:
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    out = tqmm.int8_matmul_packed(torch.from_numpy(x).to(tdt), torch.from_numpy(w_p),
+                                  torch.from_numpy(scale), int8_mxu=False)
+    assert out.dtype == tdt and out.shape == (x.shape[0], w_p.shape[1])
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("dtype,m,k,n", W8A16_CASES)
+def test_int8_matmul_f32_dequant_matches_jax_cpu_path(dtype, m, k, n):
+    """int8_mxu=False is the JAX CPU path's f32 dequantization: f32 output
+    within F32_TOL (sums in another order), bf16 within one bf16 rounding
+    step."""
+    args = w8a16_inputs(dtype, m, k, n)
+    out = w8a16_port(*args, dtype)
+    assert rel_l2(out, w8a16_jax(*args, dtype)) <= (BF16_STEP if dtype == "bf16" else F32_TOL)
+    assert not out[0].any()
+
+
+@pytest.fixture
+def tpu_body(monkeypatch):
+    """JAX's quantized matmuls taking their TPU branch, the Pallas bodies in
+    interpret mode (``pallas_tpu_view``)."""
+    take_tpu_branch(monkeypatch, jqmm)
+
+
+@pytest.mark.parametrize("dtype,m,k,n", W8A16_TPU_CASES)
+def test_int8_matmul_w8a16_matches_jax_tpu_body(tpu_body, dtype, m, k, n):
+    """The same inputs through the TPU kernel's W8A16 body
+    (quantized_matmul.py:170-174: x rounded to bf16, bf16 products summed in
+    f32, times the column scale). bf16 x: the port (and its CUDA kernels)
+    within 1e-4 (sums in another order; measured up to 5.1e-5). f32 x: the
+    body's rounding of x comes on top, within 5e-3 (measured 1.7e-3), and
+    the port given x rounded to bf16 first stays within F32_TOL (measured
+    3e-7), the rule the CUDA kernels follow."""
+    x, w_p, scale = w8a16_inputs(dtype, m, k, n, seed=3)
+    ref = w8a16_jax(x, w_p, scale, dtype)
+    got = w8a16_port(x, w_p, scale, dtype)
+    assert not ref[0].any() and not got[0].any()
+    if dtype == "bf16":
+        assert rel_l2(got, ref) <= 1e-4
+    else:
+        assert rel_l2(got, ref) <= 5e-3
+        x_bf = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+        assert rel_l2(w8a16_port(x_bf, w_p, scale, dtype), ref) <= F32_TOL
 
 
 def test_int8_matmul_w8a8_matches_tpu_arithmetic():
@@ -205,6 +273,48 @@ def test_decode_attention_packed_stack_matches_jax():
         torch.from_numpy(ks), torch.from_numpy(vs), torch.from_numpy(mask), 1)
     assert out.shape == (B, H, 1, D)
     assert rel_l2(out, ref) <= F32_TOL
+
+
+# K4's rows at the edges of its kernel's cluster ranks and skipped
+# positions (csrc/decode_attention.cu): each row's valid [lo, hi); T = 600
+# is not a multiple of a rank's 512-position span
+K4_EDGE_ROWS = {
+    "valid_len_1_last": (599, 600),
+    "left_padded": (37, 600),
+    "no_valid_position": (0, 0),
+    "valid_len_1_first": (0, 1),
+}
+
+
+@pytest.mark.parametrize("t", [600, 1])
+def test_decode_attention_packed_stack_edges_match_jax(t):
+    """K4's plain version against the JAX function (its CPU path) at the
+    rows the kernel treats apart: one valid position, first or last; left
+    padding; no valid position (equal weights over all of T, the softmax of
+    a constant row, in both); T off a rank's span, and T = 1."""
+    rng = np.random.default_rng(7)
+    rows = list(K4_EDGE_ROWS)
+    L, B, H, D = 2, len(rows), 2, 16
+    k8 = rng.integers(-127, 128, (L, B, H, t, D), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (L, B, H, t, D), dtype=np.int8)
+    ks = (rng.random((L, B, H, t)) * 0.02 + 0.005).astype(np.float32)
+    vs = (rng.random((L, B, H, t)) * 0.02 + 0.005).astype(np.float32)
+    mask = np.zeros((B, t), np.int32)
+    for r, name in enumerate(rows):  # at T = 1 every valid range is position 0
+        lo, hi = K4_EDGE_ROWS[name]
+        mask[r, min(lo, t - 1):min(hi, t)] = 1
+    q = rng.standard_normal((B, H, 1, D)).astype(np.float32)
+    ref = jattn.decode_attention_packed_stack(
+        jnp.asarray(q), jattn.pack_kv_heads(jnp.asarray(k8)),
+        jattn.pack_kv_heads(jnp.asarray(v8)), jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(mask), jnp.asarray(1, jnp.int32))
+    out = tattn.decode_attention_packed_stack(
+        torch.from_numpy(q), torch.from_numpy(k8), torch.from_numpy(v8),
+        torch.from_numpy(ks), torch.from_numpy(vs), torch.from_numpy(mask), 1)
+    assert rel_l2(out, ref) <= F32_TOL
+    empty = rows.index("no_valid_position")
+    uniform = np.einsum("ht,htd->hd", vs[1, empty] / t, v8[1, empty].astype(np.float32))
+    assert rel_l2(out[empty, :, 0].numpy(), uniform) <= F32_TOL
 
 
 def test_apply_rope_matches_jax():

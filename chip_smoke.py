@@ -1066,7 +1066,8 @@ def _edge_cases(dev):
     rows whose segment no key carries (held to 0, the plain version's rows
     zeroed to match); K2 bit for bit at M 17, 100 and 5667 with N 4100 and
     K 4160 (a multiple of 64, not of the 128-deep k tile), at N % 4 != 0 and
-    with f32 x."""
+    with f32 x, and its decode stream at M 1, 8, 14 and 16 with N off its
+    32-column strips (N % 32 != 0, by TMA, and N % 4 != 0, by cp.async)."""
     import torch
 
     A, Q, _, _ = kernel_modules()
@@ -1125,7 +1126,9 @@ def _edge_cases(dev):
 
     for m, kdim, n, dtype in ((17, 4160, 4100, bf), (100, 4160, 4100, bf),
                               (5667, 4160, 4100, bf), (100, 256, 90, bf),
-                              (70, 128, 64, torch.float32)):
+                              (70, 128, 64, torch.float32), (1, 4160, 4100, bf),
+                              (16, 4096, 4100, torch.float32), (8, 256, 90, torch.float32),
+                              (14, 4160, 4130, bf)):
         x = torch.randn(m, kdim, generator=g, device=dev).to(dtype)
         w_q, scale = Q.quantize_weights(torch.randn(kdim, n, generator=g, device=dev) * 0.02)
         w_p = Q.pack_int8_rows(w_q)
@@ -2628,7 +2631,7 @@ def phase_overlap(dev, predictor=None, widths=(4, 4), phase: str = "9 overlap",
 # --------------------------------------------------------------- phase 13
 def phase_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
                    prompt_len: int = PROMPT_LEN, new_tokens: int = NEW_TOKENS,
-                   phase: str = "13 int4-w4a16") -> dict:
+                   phase: str = "13 int4-w4a16", profile_dir: str | None = None) -> dict:
     """MM2SG-7B ``--quantize int4`` at ``quant_int8_mxu=False`` (no CLI flag,
     in JAX or here: the LlamaConfig field, set with ``dataclasses.replace``
     before ``quantize_mega``, which keeps it) through ``generate_stepwise``
@@ -2641,7 +2644,9 @@ def phase_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
     row whose top-2 margin exceeds twice the largest logit difference; the
     top-1 agreement with the same weights at ``quant_int8_mxu=True`` (phase
     5's W4A8 model) is printed, not gated: the two numerics differ by
-    design. Returns the path's launch counts."""
+    design. With ``profile_dir``, one prefill under torch.profiler, and the
+    device time in it of K3's W4A16 kernel above 16 rows (by its name).
+    Returns the path's launch counts."""
     import dataclasses
 
     import torch
@@ -2742,6 +2747,15 @@ def phase_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
     check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
     check(err <= bound, f"prefill logits rel_l2 {err:.3e} > {bound:.3e}")
     check(bool(agree[clear].all()), "first token differs on a row with a clear margin")
+
+    if profile_dir:  # K3-W4A16's kernel above 16 rows, by name, in one prefill
+        prefill(data, bufs)  # warm
+        n_ev, busy_us, wall_us, k3_us = device_window(dev, lambda: prefill(data, bufs),
+                                                      names=("a16_wgmma_kernel",))
+        say(phase, step="prefill-profile", kernels=n_ev, wall_ms=f"{wall_us / 1e3:.3f}",
+            device_busy_ms=f"{busy_us / 1e3:.3f}",
+            k3_w4a16_device_ms=f"{k3_us / 1e3:.3f}" if n_ev else "not_measured",
+            k3_w4a16_share=f"{k3_us / busy_us:.4f}" if busy_us else "not_measured")
     return counts
 
 
@@ -2943,9 +2957,9 @@ def nvcc_report(log: str) -> list[dict]:
     registers set its cooperative grid), ``flash_attention.cu`` (K1, one
     kernel a head dim), ``decode_attention.cu`` (K4 and K7),
     ``int8_matmul.cu``'s wgmma and stream kernels (K2 at M > 16, both
-    branches, K8 at M <= 16), ``int4_matmul.cu``'s wgmma kernels (K3 at M >
-    16, both branches) and ``reshape_probe.cu``'s product (K10f), one dict
-    a kernel, under the kernel's mangled name. K1's count is its
+    branches, K2's W8A8 at M <= 16, K8 at M <= 16), ``int4_matmul.cu``'s
+    wgmma kernels (K3 at M > 16, both branches) and ``reshape_probe.cu``'s
+    product (K10f), one dict a kernel, under the kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
     import re
@@ -2963,7 +2977,7 @@ def nvcc_report(log: str) -> list[dict]:
             if (source.endswith(("mega_decode.cu", "fused_mlp.cu", "flash_attention.cu",
                                  "decode_attention.cu"))
                     or (source.endswith("int8_matmul.cu")
-                        and ("wgmma" in name or "s8_stream" in name))
+                        and ("wgmma" in name or "s8_stream" in name or "word_stream" in name))
                     or (source.endswith("int4_matmul.cu") and "wgmma" in name)
                     or (source.endswith("reshape_probe.cu") and "product" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
@@ -2986,8 +3000,8 @@ def main(argv=None) -> int:
     p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="phases 3, 5, 7, 9, 10 and 11 also write per-kernel device time "
-                        "tables to DIR")
+                   help="phases 3, 5, 7, 9, 10, 11 and 13 also write per-kernel device "
+                        "time tables to DIR")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -3051,7 +3065,7 @@ def main(argv=None) -> int:
         11: ("overlap8", lambda: phase_overlap(dev, int8_predictor(), (8, 8), "11 overlap8",
                                                "overlap8", profile_dir=prof)),
         12: ("perf", lambda: phase_perf_tools(dev)),
-        13: ("int4a16", lambda: phase_a16_path(dev)),
+        13: ("int4a16", lambda: phase_a16_path(dev, profile_dir=prof)),
         14: ("int8a16", lambda: phase_int8_a16_path(dev)),
     }
     t_start = time.perf_counter()

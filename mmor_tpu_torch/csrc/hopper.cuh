@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the flash attention kernel (K1,
-// flash_attention.cu), K2's prefill products (W8A8 and W8A16) and K8's
-// skinny kernel (int8_matmul.cu), K3's prefill product (int4_matmul.cu) and
+// flash_attention.cu), K2's prefill products (W8A8 and W8A16) and the K2
+// and K8 decode streams (int8_matmul.cu), K3's prefill products
+// (int4_matmul.cu) and
 // K10f's product (reshape_probe.cu): mbarriers,
 // TMA tile loads and the host-side tensor maps they read, cp.async (with an
 // mbarrier arrival, or in commit groups), the warpgroup matrix product
@@ -76,6 +77,17 @@ __device__ __forceinline__ void mbar_fence_init() {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// A consumer warp's release of a ring stage that its lanes read with
+// ordinary shared-memory loads and that TMA then refills: the proxy fence
+// orders the lanes' reads (generic proxy) before the refill's writes (async
+// proxy), which the barrier's arrive and wait alone do not; without it the
+// next tile's bytes can land under loads still in flight. One arrival a warp.
+__device__ __forceinline__ void release_stage(uint64_t* bar, int lane) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
 // one arrival, and `bytes` more to come from asynchronous copies

@@ -33,11 +33,12 @@
 //    bit for bit int4_matmul_packed_plain(int8_mxu=True).
 //  - W4A16: x in bf16 (f32 x is rounded to bf16 by a pre-pass kernel,
 //    act_quant.cuh's to_bf16_kernel, into the wrapper's scratch, so the
-//    product kernels read bf16 only); each K-group's dot sums exact bf16
-//    products in f32 on the tensor cores and folds the same way, acc = acc
-//    + dot * scale[group, col]. The plain version is the JAX CPU path (f32
-//    dequantization, then x @ w), so the two differ by the sums' order and,
-//    for f32 x, by x's rounding.
+//    product kernels read bf16 only); exact bf16 products summed in f32 on
+//    the tensor cores, each K-group's sum taken at its scale in group
+//    order. At up to 16 rows the fold is acc = acc + dot * scale[group,
+//    col]; above, it is rescaled (below). The plain version is the JAX CPU
+//    path (f32 dequantization, then x @ w), so the two differ by the sums'
+//    order and, for f32 x, by x's rounding.
 //
 // Kernels:
 //  - M <= 16 (decode rows): W4A8 is w4a8.cuh's skinny kernel. W4A16 is
@@ -49,52 +50,65 @@
 //    word's four k in the order its B registers hold them; the warps'
 //    partial dots meet in shared memory, are summed in warp order and
 //    folded in group order.
-//  - M > 16 (prefill): wgmma_kernel<W4A8 or W4A16>, K2's prefill form
-//    (int8_matmul.cu's wgmma_kernel<true>) for int4 words. Each output tile is
-//    computed transposed, W^T (columns x K) times x^T (K x rows): the
-//    weight words, converted in registers, are the A fragments (a fragment
-//    row is a weight column), and the activation rows are the K-major B
-//    operand in shared memory. A block is two consumer warpgroups, each 64
-//    weight columns by 128 activation rows (m64n128), fed by a ring that
-//    warp 0 keeps filled with TMA, paced by full and empty mbarriers: a
-//    stage is a run of word rows of 128 columns (32-column boxes in the
-//    128-byte swizzle, wbox in hopper.cuh) and the two activation boxes
-//    that pair with them, the group's first half at g0 + 4 r0 and its
-//    second at g0 + group/2 + 4 r0, 128 rows x 128 bytes each (W4A8: 32
-//    word rows, 128 int8 k of each half, m64n128k32 s8; W4A16: 16 word
-//    rows, 64 bf16 k of each half, m64n128k16 bf16). A word register is
-//    loaded once and feeds the products of both halves. Where N % 4 != 0,
-//    which TMA's 16-byte row strides cannot describe, warp 0 copies the
-//    words by cp.async instead.
-//    Registers: a group's partial dot and the running f32 sum are two
-//    accumulator sets, 64 + 64 registers a thread at m64n128 (two m64n256
-//    sets, K2's width, would need 256 of the 255 a thread may hold), plus
-//    two stages of converted A fragments (32 each), one stage's products
-//    in flight while the next stage's fragments load. At a group's last
-//    stage the warpgroup waits for its products, folds the partial with
-//    the group's scales (loaded at its first stage) and starts the next
-//    group's partial afresh (the first product's scale-d is 0). The
-//    bf16 A fragment takes k in pairs (2t, 2t+1 and 2t+8, 2t+9), so a
-//    word of four consecutive k feeds two lanes, which both load it (one
-//    broadcast read): a stage converted into a bf16 tile for the ss form
-//    would cost a pass through shared memory and a barrier. A 128 x 128
-//    tile moves as many bytes a multiply-add as K2's 128 x 256 one (the
-//    int4 weights are half as wide), and blocks walk the output in groups
-//    of 8 row tiles, so a wave's activation rows and weight columns stay
-//    in L2. The epilogue stages the tile through shared memory so that
-//    the (M, N) stores are row-major and coalesced.
-//    What bounds it, in development builds timed on an H100 at M 5664 x
-//    4096 x 12288: the stages' bytes more than the products (issuing only
-//    the first half's products saved far less than half the time, a ring
-//    of one stage fewer was slower, and folding once instead of every
-//    1024-row group saved little). Three forms that moved fewer bytes or
-//    overlapped more were built and were slower in both branches, so none
-//    is kept: persistent blocks that load the next tile's stages
-//    during a tile's epilogue, a 2-block cluster sharing each activation
-//    box by TMA multicast, and stages of half the word rows (64-byte
-//    activation rows, twice the stages in the same ring; the cause was
-//    not isolated for any of them). A call's fixed cost is small beside
-//    its main loop: the time grows about linearly with K.
+//  - M > 16 (prefill), both branches: each output tile is computed
+//    transposed, W^T (columns x K) times x^T (K x rows): the weight words,
+//    converted in registers, are the A fragments (a fragment row is a
+//    weight column), and the activation rows are the K-major B operand in
+//    shared memory. A block is two consumer warpgroups fed by a ring that
+//    warp 0 keeps filled with TMA, paced by full and empty mbarriers, the
+//    words in 32-column boxes in the 128-byte swizzle (wbox in hopper.cuh;
+//    where N % 4 != 0, which TMA's 16-byte row strides cannot describe,
+//    warp 0 copies them by cp.async), and blocks walk the output in groups
+//    of 8 row tiles, so that a wave's activation rows and weight columns
+//    stay in L2. The epilogue stages the tile through shared memory so
+//    that the (M, N) stores are row-major and coalesced.
+//    * W4A8, w4a8_wgmma_kernel: each warpgroup 64 weight columns by 128
+//      activation rows (m64n128k32 s8); a stage is 32 word rows of 128
+//      columns and the two activation boxes that pair with them, the
+//      group's first half at g0 + 4 r0 and its second at g0 + group/2 +
+//      4 r0, 128 rows x 128 bytes each: a word register is loaded once and
+//      feeds the products of both halves. A group's partial dot (s32) and
+//      the running f32 sum are two accumulator sets; at a group's last
+//      stage the warpgroup waits for its products and folds the partial.
+//      ptxas reports its wgmma serialized (C7520: the fold's wait sits
+//      under a runtime condition), as it did before the W4A16 branch left
+//      this kernel; it is timed as it was (3.63-3.70 ms at M 5664).
+//    * W4A16, a16_wgmma_kernel: each warpgroup 64 weight columns by 256
+//      activation rows, one m64n256k16 bf16 product a 16-k step into one
+//      f32 accumulator set (128 registers a thread; a second set for the
+//      group fold would not fit). Stage i is half i % 2 of word-row tile
+//      i / 2: the tile's 16 word rows (8 KB) and the 256 x 64 activations
+//      of that half (32 KB, 128 bytes a row), 5 stages of 40 KB, K2's
+//      W8A16 sizing; a word's low nibbles feed the first half's stage, its
+//      high nibbles the second's, each converted to bf16 pairs in
+//      registers (nibbles_bf16).
+//      The fold without a second accumulator set: acc counts in units of
+//      its column's scale so far, the last nonzero one (1 before any).
+//      Entering a group of scale s, the warpgroup waits for its products
+//      and multiplies acc by unit / s (one multiply a register: the scale
+//      is per weight column, a fragment row), and s becomes the unit; the
+//      epilogue multiplies by the unit. A zero scale (quantize_weights_int4
+//      never writes one; a converted checkpoint could) leaves acc and the
+//      unit as they are, and its group's values convert as exact zeros
+//      (the conversion's mask and fill registers, no extra instruction), so
+//      nothing divides by it. The wait is in the group loop's body, not
+//      under a runtime condition, so ptxas keeps the wgmma asynchronous.
+//      What was built and timed against it (development builds, the four
+//      7B projections at M 5664, NVIDIA H100 80GB HBM3 at 700 W; each pair
+//      in one process): the other fold, the group's partial in registers
+//      and the running sum in shared memory (128 KB a block, so a ring of
+//      two 40 KB stages: three do not fit), 7.35 ms against 6.03 for this
+//      fold built from the same source (5.63 in its final form); the tile's words
+//      loaded once for both halves (a ring of 3 word tiles beside 5
+//      activation stages, 10% fewer bytes a stage), 6.07 ms against 5.56;
+//      each group's low halves, then its high halves (the activation boxes
+//      in k order), 7.15 against 6.11; the zero scales as a warp-uniform
+//      branch around a select instead of the mask and fill, 6.11 against
+//      5.60. Leaving out the group waits (timing only, wrong sums) took
+//      5.64 against 6.08: the waits cost about 7%. At 1.9-2.1x
+//      torch.matmul it stays slower than K2's W8A16 kernel (1.5x) on the
+//      same stage sizes; what holds it back beyond the waits is not
+//      isolated (no ncu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,13 +124,18 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // the biased nibbles of bytes (0, 1) (sel 0x4140) or (2, 3) (sel 0x4342) of
-// w as the bf16 pair (q0, q1), the lower byte in the low half
-__device__ __forceinline__ uint32_t nibbles_bf16(uint32_t w, uint32_t sel) {
-  uint32_t v = (__byte_perm(w, 0u, sel) & 0x000F000Fu) | 0x43004300u;  // 128 + u
+// w as the bf16 pair (q0, q1), the lower byte in the low half: u OR-ed into
+// the bf16 128.0 is 128 + u, 136 less is q. With mask 0 and fill 0x43084308
+// (136, 136) instead, the pair is (0, 0) whatever w holds: one LOP3 either way.
+__device__ __forceinline__ uint32_t nibbles_bf16(uint32_t w, uint32_t sel,
+                                                 uint32_t mask = 0x000F000Fu,
+                                                 uint32_t fill = 0x43004300u) {
+  uint32_t v = (__byte_perm(w, 0u, sel) & mask) | fill;
   const __nv_bfloat162 q =
       __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<const uint32_t*>(&q);
 }
+constexpr uint32_t kNibbleMask = 0x000F000Fu, kNibbleFill = 0x43004300u, kZeroFill = 0x43084308u;
 constexpr uint32_t kBytes01 = 0x4140u, kBytes23 = 0x4342u;
 
 // the biased nibbles u of w's low (or, shifted first, high) halves as s8
@@ -207,112 +226,148 @@ a16_skinny_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ w,
 }
 
 // -------------------------------------------------- both branches, M > 16
+// the origin of output tile `id` (kRowsT activation rows x kColsT weight
+// columns): row tiles in groups of kRaster, the columns walked within a
+// group, so that a wave of tiles shares rows and columns in L2
+constexpr int kRaster = 8;  // row tiles a raster group
+template <int kRowsT, int kColsT>
+__device__ __forceinline__ void tile_origin(int id, int n_ct, int n_rt, int& m0, int& n0) {
+  const int per = kRaster * n_ct, first = (id / per) * kRaster;
+  const int rows = min(n_rt - first, kRaster), pos = id % per;
+  m0 = (first + pos % rows) * kRowsT;
+  n0 = (pos / rows) * kColsT;
+}
+using wbox::swz;
+
+// The ring's barriers: full[s] takes the TMA bytes' arrival, and each
+// lane's cp.asyncs where warp 0 copies the words; empty[s] one arrival a
+// consumer warp
+template <int kStages>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int w_tma) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], w_tma ? 1 : 1 + 32);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// warp 0's copy of word rows wr0.. (kWordRows of them) x kCols columns n0..
+// where TMA cannot take the weight (N % 4 != 0): 4 bytes a cp.async, into
+// the 32-column boxes' swizzled layout, zeros past N
+template <int kWordRows, int kCols>
+__device__ __forceinline__ void copy_words(uint8_t* ws, const uint32_t* w, int wr0, int n0,
+                                           int n, int lane) {
+  constexpr int kBox = wbox::kCols, kBoxBytes = kWordRows * kBox * 4;
+  for (int c = lane; c < kWordRows * kCols; c += 32) {
+    const int r = c / kCols, col = c % kCols;
+    const bool in = n0 + col < n;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(ws + (col / kBox) * kBoxBytes) + swz(r, col % kBox);
+    cp_async4(dst, in ? w + (size_t)(wr0 + r) * n + n0 + col : w, in ? 4 : 0);
+  }
+}
+
+// rows of kCols + 16 bytes' worth of elements: the epilogue's row-major
+// tile in shared memory, its rows 16-byte aligned
+template <typename OutT, int kCols>
+constexpr int kTileStride = kCols + 16 / (int)sizeof(OutT);
+
+// the block's output tile (kRows x kCols at m0, n0, staged row-major in
+// `tile`) to out, 16 bytes a store where N allows
+template <typename OutT, int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void store_tile(const OutT* tile, OutT* out, int m0, int n0, int m,
+                                           int n) {
+  constexpr int kStride = kTileStride<OutT, kCols>;
+  constexpr int kVec = 16 / (int)sizeof(OutT);  // elements a 16-byte store
+  constexpr int kChunks = kCols / kVec;
+  const bool vec = (n % kVec) == 0;
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+    const int rl = c / kChunks, cl = (c % kChunks) * kVec;
+    const int row = m0 + rl, col = n0 + cl;
+    if (row >= m || col >= n) continue;
+    const OutT* src = tile + rl * kStride + cl;
+    OutT* dst = out + (size_t)row * n + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < kVec && col + e < n; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+// ----------------------------------------------------------- W4A8, M > 16
 namespace wg {
 constexpr int kCols = 128;   // weight columns a block, 64 a consumer warpgroup
 constexpr int kRows = 128;   // activation rows a block: the wgmma's N
 constexpr int kBox = wbox::kCols;
 constexpr int kThreads = 256;  // two consumer warpgroups; warp 0 also loads
-constexpr int kRaster = 8;     // row tiles a raster group
-
-// the origin of output tile `id`: row tiles in groups of kRaster, the
-// columns walked within a group, so that a wave of tiles shares rows and
-// columns in L2
-__device__ __forceinline__ void tile_origin(int id, int n_ct, int n_rt, int& m0, int& n0) {
-  const int per = kRaster * n_ct, first = (id / per) * kRaster;
-  const int rows = min(n_rt - first, kRaster), pos = id % per;
-  m0 = (first + pos % rows) * kRows;
-  n0 = (pos / rows) * kCols;
-}
-
-template <bool kA8>
-struct Cfg {
-  static constexpr int kWordRows = kA8 ? 32 : 16;  // word rows a stage
-  static constexpr int kHalfK = 4 * kWordRows;     // k of each half a stage: 128 bytes of a row
-  static constexpr int kSteps = 4;                 // mma k-steps a half: k32 s8 or k16 bf16
-  static constexpr int kXHalfBytes = kRows * 128;  // one activation box
-  static constexpr int kBoxBytes = kWordRows * kBox * 4;
-  static constexpr int kWBytes = kCols / kBox * kBoxBytes;
-  static constexpr int kStageBytes = 2 * kXHalfBytes + kWBytes;
-  static constexpr int kStages = kA8 ? 4 : 5;  // W4A8 48 KB stages, W4A16 40 KB
-  static constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
-  using Acc = typename std::conditional<kA8, int, float>::type;
-};
-static_assert(kRows * (kCols + 4) * 4 <= Cfg<true>::kStages * Cfg<true>::kStageBytes &&
-              kRows * (kCols + 4) * 4 <= Cfg<false>::kStages * Cfg<false>::kStageBytes,
-              "epilogue tile");
-using wbox::swz;
+constexpr int kWordRows = 32;                 // word rows a stage
+constexpr int kHalfK = 4 * kWordRows;         // k of each half a stage: 128 bytes of a row
+constexpr int kSteps = 4;                     // m64n128k32 s8 steps a half
+constexpr int kXHalfBytes = kRows * 128;      // one activation box
+constexpr int kBoxBytes = kWordRows * kBox * 4;
+constexpr int kWBytes = kCols / kBox * kBoxBytes;
+constexpr int kStageBytes = 2 * kXHalfBytes + kWBytes;  // 48 KB
+constexpr int kStages = 4;
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+static_assert(kRows * (kCols + 4) * 4 <= kStages * kStageBytes, "epilogue tile");
 }  // namespace wg
 
-// x_map: the activation rows (xq int8 for W4A8, bf16 for W4A16), boxes of
-// 128 rows x 128 bytes in the 128-byte swizzle; w_map: the weight's (N,
-// K/8) int32 map, boxes of 32 columns x kWordRows word rows in the 128-byte
-// swizzle, when N % 4 == 0 (w_tma); otherwise warp 0 copies the words, 4
-// bytes a cp.async. rs: W4A8's row scales.
-template <bool kA8, typename OutT>
+// x_map: the quantized activation rows xq, boxes of 128 rows x 128 bytes in
+// the 128-byte swizzle; w_map: the weight's (N, K/8) int32 map, boxes of 32
+// columns x kWordRows word rows in the 128-byte swizzle, when N % 4 == 0
+// (w_tma); otherwise warp 0 copies the words, 4 bytes a cp.async. rs: the
+// row scales.
+template <typename OutT>
 __global__ void __launch_bounds__(wg::kThreads, 1)
-wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
-             const __grid_constant__ CUtensorMap w_map, int w_tma,
-             const uint32_t* __restrict__ w, const float* __restrict__ scale,
-             const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n,
-             int group) {
+w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map, int w_tma,
+                  const uint32_t* __restrict__ w, const float* __restrict__ scale,
+                  const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n,
+                  int group) {
   using namespace wg;
-  using C = Cfg<kA8>;
-  using Acc = typename C::Acc;
   extern __shared__ uint8_t smem_raw[];
   // 1024-aligned for the 128-byte swizzle; offset from the __shared__ array
   // so that accesses compile to shared-memory loads, not generic ones
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kStages * C::kStageBytes);
-  uint64_t* empty = full + C::kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
   int m0, n0;
-  tile_origin(blockIdx.x, (n + kCols - 1) / kCols, (m + kRows - 1) / kRows, m0, n0);
-  const int tiles = k / 8 / C::kWordRows, per_group = group / 8 / C::kWordRows;
+  tile_origin<kRows, kCols>(blockIdx.x, (n + kCols - 1) / kCols, (m + kRows - 1) / kRows, m0,
+                            n0);
+  const int tiles = k / 8 / kWordRows, per_group = group / 8 / kWordRows;
   const int lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      // the TMA bytes' arrival, and each lane's cp.asyncs where they copy the weights
-      mbar_init(&full[s], w_tma ? 1 : 1 + 32);
-      mbar_init(&empty[s], 8);  // one arrival a consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
+  init_ring<kStages>(full, empty, w_tma);
 
   // Warp 0 loads k-tile t into stage t % kStages, once every warp has
   // released the tile that stage held (kStages tiles before).
   auto produce = [&](int t) {
-    const int s = t % C::kStages;
-    if (lane == 0 && t >= C::kStages) mbar_wait(&empty[s], ((t / C::kStages) - 1) & 1);
+    const int s = t % kStages;
+    if (lane == 0 && t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
     __syncwarp();
-    uint8_t* st = smem + s * C::kStageBytes;
-    uint8_t* ws = st + 2 * C::kXHalfBytes;
-    const int k_lo = (t / per_group) * group + (t % per_group) * C::kHalfK;
+    uint8_t* st = smem + s * kStageBytes;
+    uint8_t* ws = st + 2 * kXHalfBytes;
+    const int k_lo = (t / per_group) * group + (t % per_group) * kHalfK;
     if (lane == 0) {
-      mbar_arrive_expect_tx(&full[s], 2 * C::kXHalfBytes + (w_tma ? C::kWBytes : 0));
+      mbar_arrive_expect_tx(&full[s], 2 * kXHalfBytes + (w_tma ? kWBytes : 0));
       tma_load_2d(st, &x_map, &full[s], k_lo, m0);
-      tma_load_2d(st + C::kXHalfBytes, &x_map, &full[s], k_lo + group / 2, m0);
+      tma_load_2d(st + kXHalfBytes, &x_map, &full[s], k_lo + group / 2, m0);
       if (w_tma) {
 #pragma unroll
         for (int b = 0; b < kCols / kBox; ++b)
-          tma_load_2d(ws + b * C::kBoxBytes, &w_map, &full[s], n0 + b * kBox,
-                      t * C::kWordRows);
+          tma_load_2d(ws + b * kBoxBytes, &w_map, &full[s], n0 + b * kBox, t * kWordRows);
       }
     }
-    if (!w_tma) {  // kWordRows word rows x 128 columns, into the boxes' swizzled layout
-      for (int c = lane; c < C::kWordRows * kCols; c += 32) {
-        const int r = c / kCols, col = c % kCols;
-        const int wr = t * C::kWordRows + r;
-        const bool in = n0 + col < n;
-        uint32_t* dst = reinterpret_cast<uint32_t*>(ws + (col / kBox) * C::kBoxBytes) +
-                        swz(r, col % kBox);
-        cp_async4(dst, in ? w + (size_t)wr * n + n0 + col : w, in ? 4 : 0);
-      }
+    if (!w_tma) {
+      copy_words<kWordRows, kCols>(ws, w, t * kWordRows, n0, n, lane);
       cp_async_arrive(&full[s]);
     }
   };
   const bool loader = threadIdx.x < 32;
   if (loader)
-    for (int t = 0; t < C::kStages - 1 && t < tiles; ++t) produce(t);
+    for (int t = 0; t < kStages - 1 && t < tiles; ++t) produce(t);
 
   // ------------------------------------------------------------- consumers
   const int cw = threadIdx.x / 128;  // consumer warpgroup: weight columns 64cw..
@@ -323,68 +378,53 @@ wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
   for (int h = 0; h < 2; ++h) cls[h] = cw * 64 + (warp >> 1) * 32 + wbox::col(warp, g + 8 * h);
   const int c_lo = cls[0] % kBox, c_hi = cls[1] % kBox;
-  Acc acc[64];  // the group's partial dot
+  int acc[64];  // the group's partial dot
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0;
   float sc[2] = {0.f, 0.f};  // the current group's scales of this thread's columns
 
-  // The A fragments of k-tile t, once its stage has landed: a[step][half][4].
-  // W4A8, k32 step ks: word rows 8ks + t4 and + 4 (k 4t4.. and 16 + 4t4..).
-  // W4A16, k16 step ks: word rows 4ks + t4/2 and + 2 (k 2t4, 2t4 + 1 and
-  // 2t4 + 8, 2t4 + 9: bytes 0-1 or 2-3 of the word).
-  auto load_a = [&](uint32_t (&a)[C::kSteps][2][4], int t) {
-    const int s = t % C::kStages;
-    mbar_wait(&full[s], (t / C::kStages) & 1);
-    const uint32_t* wb = reinterpret_cast<const uint32_t*>(smem + s * C::kStageBytes +
-                                                           2 * C::kXHalfBytes + box * C::kBoxBytes);
+  // The A fragments of k-tile t, once its stage has landed: a[step][half][4];
+  // k32 step ks: word rows 8ks + t4 and + 4 (k 4t4.. and 16 + 4t4..).
+  auto load_a = [&](uint32_t (&a)[kSteps][2][4], int t) {
+    const int s = t % kStages;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    const uint32_t* wb = reinterpret_cast<const uint32_t*>(smem + s * kStageBytes +
+                                                           2 * kXHalfBytes + box * kBoxBytes);
 #pragma unroll
-    for (int ks = 0; ks < C::kSteps; ++ks) {
-      const int r0 = kA8 ? ks * 8 + t4 : ks * 4 + (t4 >> 1), r1 = r0 + (kA8 ? 4 : 2);
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int r0 = ks * 8 + t4, r1 = r0 + 4;
       const uint32_t words[4] = {wb[swz(r0, c_lo)], wb[swz(r0, c_hi)], wb[swz(r1, c_lo)],
                                  wb[swz(r1, c_hi)]};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if constexpr (kA8) {
-          a[ks][0][i] = nibbles_s8(words[i]);
-          a[ks][1][i] = nibbles_s8(words[i] >> 4);
-        } else {
-          const uint32_t sel = (t4 & 1) ? kBytes23 : kBytes01;
-          a[ks][0][i] = nibbles_bf16(words[i], sel);
-          a[ks][1][i] = nibbles_bf16(words[i] >> 4, sel);
-        }
+        a[ks][0][i] = nibbles_s8(words[i]);
+        a[ks][1][i] = nibbles_s8(words[i] >> 4);
       }
     }
   };
   // the products of k-tile t; a group's first product starts the partial afresh
-  auto issue = [&](uint32_t (&a)[C::kSteps][2][4], int t) {
-    const uint8_t* st = smem + (t % C::kStages) * C::kStageBytes;
+  auto issue = [&](uint32_t (&a)[kSteps][2][4], int t) {
+    const uint8_t* st = smem + (t % kStages) * kStageBytes;
     const uint64_t d_lo = gmma_desc(smem_u32(st), 16, 8 * 128, gmma_layout(128));
-    const uint64_t d_hi = gmma_desc(smem_u32(st + C::kXHalfBytes), 16, 8 * 128,
-                                    gmma_layout(128));
+    const uint64_t d_hi = gmma_desc(smem_u32(st + kXHalfBytes), 16, 8 * 128, gmma_layout(128));
     const int fresh = t % per_group == 0;
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < C::kSteps; ++ks) {  // +32 bytes of k a step
-      if constexpr (kA8) {
-        wgmma_rs_s8_n128(acc, a[ks][0], d_lo + 2 * ks, !(fresh && ks == 0));
-        wgmma_rs_s8_n128(acc, a[ks][1], d_hi + 2 * ks, 1);
-      } else {
-        wgmma_rs_bf16_n128<0>(acc, a[ks][0], d_lo + 2 * ks, !(fresh && ks == 0));
-        wgmma_rs_bf16_n128<0>(acc, a[ks][1], d_hi + 2 * ks, 1);
-      }
+    for (int ks = 0; ks < kSteps; ++ks) {  // +32 bytes of k a step
+      wgmma_rs_s8_n128(acc, a[ks][0], d_lo + 2 * ks, !(fresh && ks == 0));
+      wgmma_rs_s8_n128(acc, a[ks][1], d_hi + 2 * ks, 1);
     }
     wgmma_commit();
   };
   // k-tile t's products are done: release its stage, and warp 0 refills it
   // with tile t + kStages once the other warps have released it too
   auto release = [&](int t) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[t % C::kStages]);
-    if (loader && t + C::kStages - 1 < tiles) produce(t + C::kStages - 1);
+    release_stage(&empty[t % kStages], lane);
+    if (loader && t + kStages - 1 < tiles) produce(t + kStages - 1);
   };
-  auto fence_a = [&](uint32_t (&a)[C::kSteps][2][4]) {
+  auto fence_a = [&](uint32_t (&a)[kSteps][2][4]) {
 #pragma unroll
-    for (int ks = 0; ks < C::kSteps; ++ks) {
+    for (int ks = 0; ks < kSteps; ++ks) {
       fence_regs(a[ks][0]);
       fence_regs(a[ks][1]);
     }
@@ -400,7 +440,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   // before it unconditionally, so that ptxas sees each buffer's products
   // complete before the buffer is rewritten (a wait on a runtime condition
   // made it inject waits of its own).
-  auto step = [&](uint32_t (&cur)[C::kSteps][2][4], uint32_t (&nxt)[C::kSteps][2][4], int t) {
+  auto step = [&](uint32_t (&cur)[kSteps][2][4], uint32_t (&nxt)[kSteps][2][4], int t) {
     const int pos = t % per_group;
     if (pos == 0) {
       const int grp = t / per_group;
@@ -423,81 +463,298 @@ wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     }
     if (t + 1 < tiles) load_a(nxt, t + 1);
   };
-  uint32_t a0[C::kSteps][2][4], a1[C::kSteps][2][4];
+  uint32_t a0[kSteps][2][4], a1[kSteps][2][4];
   load_a(a0, 0);
   for (int t = 0; t < tiles; t += 2) {
     step(a0, a1, t);
     if (t + 1 < tiles) step(a1, a0, t + 1);
   }
 
-  // epilogue: accf (times the row scale for W4A8), staged row-major in the ring
+  // epilogue: accf times the row scale, staged row-major in the ring
   __syncthreads();  // both consumer warpgroups are done with the ring
-  constexpr int kStride = kCols + 16 / (int)sizeof(OutT);  // padded row, 16-byte aligned
+  constexpr int kStride = kTileStride<OutT, kCols>;
   OutT* tile = reinterpret_cast<OutT*>(smem);
 #pragma unroll
   for (int c = 0; c < kRows / 8; ++c) {  // rows 8c + 2t4 and + 1
     const int rl = c * 8 + t4 * 2;
-    float r0 = 1.f, r1 = 1.f;
-    if constexpr (kA8) {
-      r0 = m0 + rl < m ? rs[m0 + rl] : 0.f;
-      r1 = m0 + rl + 1 < m ? rs[m0 + rl + 1] : 0.f;
-    }
+    const float r0 = m0 + rl < m ? rs[m0 + rl] : 0.f;
+    const float r1 = m0 + rl + 1 < m ? rs[m0 + rl + 1] : 0.f;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float v = kA8 ? __fmul_rn(accf[4 * c + e], (e & 1) ? r1 : r0) : accf[4 * c + e];
+      const float v = __fmul_rn(accf[4 * c + e], (e & 1) ? r1 : r0);
       tile[(rl + (e & 1)) * kStride + cls[e >> 1]] = from_float<OutT>(v);
     }
   }
   __syncthreads();
-  constexpr int kVec = 16 / (int)sizeof(OutT);  // elements a 16-byte store
-  constexpr int kChunks = kCols / kVec;
-  const bool vec = (n % kVec) == 0;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int rl = c / kChunks, cl = (c % kChunks) * kVec;
-    const int row = m0 + rl, col = n0 + cl;
-    if (row >= m || col >= n) continue;
-    const OutT* src = tile + rl * kStride + cl;
-    OutT* dst = out + (size_t)row * n + col;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < kVec && col + e < n; ++e) dst[e] = src[e];
-    }
-  }
+  store_tile<OutT, kRows, kCols, kThreads>(tile, out, m0, n0, m, n);
 }
 
-template <bool kA8, typename OutT>
-cudaError_t launch_wgmma(const void* xs, const uint32_t* w, const float* scale, const float* rs,
-                         OutT* out, int m, int k, int n, int group, cudaStream_t s) {
+// ---------------------------------------------------------- W4A16, M > 16
+namespace a16 {
+constexpr int kCols = 128;      // weight columns a block, 64 a consumer warpgroup
+constexpr int kRows = 256;      // activation rows a block: the wgmma's N
+constexpr int kBox = wbox::kCols;
+constexpr int kThreads = 256;   // two consumer warpgroups; warp 0 also loads
+constexpr int kWordRows = 16;   // word rows a tile: 64 k of each half of a group
+constexpr int kSteps = 4;       // m64n256k16 steps a stage: 64 bf16 k, 128 bytes of a row
+constexpr int kXBytes = kRows * 128;               // 32 KB
+constexpr int kBoxBytes = kWordRows * kBox * 4;    // 2 KB
+constexpr int kWBytes = kCols / kBox * kBoxBytes;  // 8 KB
+constexpr int kStageBytes = kXBytes + kWBytes;     // 40 KB
+constexpr int kStages = 5;
+constexpr int kAcc = kRows / 2;  // accumulators a thread
+constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+static_assert(kRows * (kCols + 4) * 4 <= kStages * kStageBytes, "epilogue tile");
+}  // namespace a16
+
+// W4A16 above 16 rows: x_map the bf16 rows, boxes of 256 rows x 64 k (128
+// bytes) in the 128-byte swizzle; w_map the weight's (N, K/8) int32 map,
+// boxes of 32 columns x 16 word rows, when N % 4 == 0 (w_tma), else warp 0
+// copies the words by cp.async. Stage i is word-row tile i / 2 (16 word
+// rows, 64 k of each half of its group) and half i % 2 of it: the tile's
+// words (8 KB, loaded with each half) and the 64 activations of that half.
+template <typename OutT>
+__global__ void __launch_bounds__(a16::kThreads, 1)
+a16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w_map, int w_tma,
+                 const uint32_t* __restrict__ w, const float* __restrict__ scale,
+                 OutT* __restrict__ out, int m, int k, int n, int group) {
+  using namespace a16;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  int m0, n0;
+  tile_origin<kRows, kCols>(blockIdx.x, (n + kCols - 1) / kCols, (m + kRows - 1) / kRows, m0,
+                            n0);
+  const int stages = k / 64, per_group = group / 64, tiles_per_group = group / 128;
+  const int groups = k / group;
+  const int lane = threadIdx.x % 32;
+  init_ring<kStages>(full, empty, w_tma);
+
+  // warp 0 loads stage i into ring slot i % kStages once it is released
+  auto produce = [&](int i) {
+    const int s = i % kStages, t = i >> 1;
+    if (lane == 0 && i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+    __syncwarp();
+    uint8_t* st = smem + s * kStageBytes;
+    uint8_t* ws = st + kXBytes;
+    const int kx = (t / tiles_per_group) * group + (i & 1) * (group / 2) +
+                   (t % tiles_per_group) * 64;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&full[s], kXBytes + (w_tma ? kWBytes : 0));
+      tma_load_2d(st, &x_map, &full[s], kx, m0);
+      if (w_tma) {
+#pragma unroll
+        for (int b = 0; b < kCols / kBox; ++b)
+          tma_load_2d(ws + b * kBoxBytes, &w_map, &full[s], n0 + b * kBox, t * kWordRows);
+      }
+    }
+    if (!w_tma) {
+      copy_words<kWordRows, kCols>(ws, w, t * kWordRows, n0, n, lane);
+      cp_async_arrive(&full[s]);
+    }
+  };
+  const bool loader = threadIdx.x < 32;
+  constexpr int kAhead = kStages - 1;  // a slot is refilled one step after its release
+  if (loader)
+    for (int i = 0; i < kAhead && i < stages; ++i) produce(i);
+
+  // ------------------------------------------------------------- consumers
+  const int cw = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int g = lane / 4, t4 = lane % 4;
+  const int box = cw * 2 + (warp >> 1);
+  int cls[2];  // this thread's two columns (fragment rows g and g + 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) cls[h] = cw * 64 + (warp >> 1) * 32 + wbox::col(warp, g + 8 * h);
+  const int c_lo = cls[0] % kBox, c_hi = cls[1] % kBox;
+  const uint32_t sel = (t4 & 1) ? kBytes23 : kBytes01;
+  auto col_scale = [&](int grp, int h) {  // 1 past N: those columns are not stored
+    return n0 + cls[h] < n ? scale[(size_t)grp * n + n0 + cls[h]] : 1.f;
+  };
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  // sld: the scales of the group whose fragments load; spre: the next
+  // group's, loaded a group ahead; unit: the scale acc counts in (the last
+  // nonzero one so far); zero: the column's scale is 0 in the loading
+  // group, whose values then convert as 0 (mask and fill)
+  float sld[2], spre[2] = {col_scale(0, 0), col_scale(0, 1)}, unit[2] = {1.f, 1.f};
+  bool zero[2] = {false, false};
+  uint32_t mask[2], fill[2];
+
+  // A fragments of stage i: k16 step ks takes word rows 4ks + t4/2 and + 2
+  // (k 2t4, 2t4 + 1 and 2t4 + 8, 2t4 + 9: bytes 0-1 or 2-3 of the word), the
+  // low nibbles for the group's first half, the high ones for its second
+  auto load_a = [&](uint32_t (&a)[kSteps][4], int i) {
+    if (i % per_group == 0) {
+      const int grp = i / per_group;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sld[h] = spre[h];
+        spre[h] = grp + 1 < groups ? col_scale(grp + 1, h) : 1.f;
+        zero[h] = sld[h] == 0.f;
+        mask[h] = zero[h] ? 0u : kNibbleMask;
+        fill[h] = zero[h] ? kZeroFill : kNibbleFill;
+      }
+    }
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const uint32_t* wb = reinterpret_cast<const uint32_t*>(smem + s * kStageBytes + kXBytes +
+                                                           box * kBoxBytes);
+    const uint32_t shift = (i & 1) * 4;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int r0 = ks * 4 + (t4 >> 1), r1 = r0 + 2;
+      const uint32_t words[4] = {wb[swz(r0, c_lo)], wb[swz(r0, c_hi)], wb[swz(r1, c_lo)],
+                                 wb[swz(r1, c_hi)]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)  // words 0, 2: column cls[0]; 1, 3: cls[1]
+        a[ks][j] = nibbles_bf16(words[j] >> shift, sel, mask[j & 1], fill[j & 1]);
+    }
+  };
+  auto issue = [&](uint32_t (&a)[kSteps][4], int i) {
+    const uint64_t db = gmma_desc(smem_u32(smem + (i % kStages) * kStageBytes), 16, 8 * 128,
+                                  gmma_layout(128));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) wgmma_rs_bf16_n256<0>(acc, a[ks], db + 2 * ks, 1);
+    wgmma_commit();
+  };
+  auto release = [&](int i) {
+    release_stage(&empty[i % kStages], lane);
+    if (loader && i + kAhead < stages) produce(i + kAhead);
+  };
+  auto fence_a = [&](uint32_t (&a)[kSteps][4]) {
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) fence_regs(a[ks]);
+  };
+  // the rescaled fold: entering a group of scales sld, acc (in units of
+  // `unit`) is multiplied by unit / sld where sld != 0, which then becomes
+  // the unit; a zero scale's group adds nothing (its values convert as 0)
+  // and leaves acc as it is. Nothing divides by a zero scale.
+  auto enter_group = [&](bool apply) {
+    float f[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      f[h] = zero[h] ? 1.f : __fdiv_rn(unit[h], sld[h]);
+      unit[h] = zero[h] ? unit[h] : sld[h];
+    }
+    if (apply) {
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) acc[j] = __fmul_rn(acc[j], f[(j >> 1) & 1]);
+    }
+  };
+  // One stage's products stay in flight while the next stage's fragments
+  // load (cur and nxt alternate). The products are waited for at each
+  // group's end, a wait in the group loop's body and not under a runtime
+  // condition (ptxas serializes every wgmma of a kernel that waits under
+  // one), before acc is rescaled; the next group's first fragments are
+  // loaded before that wait.
+  auto step = [&](uint32_t (&cur)[kSteps][4], uint32_t (&nxt)[kSteps][4], int i) {
+    issue(cur, i);
+    wgmma_wait<1>();
+    fence_a(nxt);
+    if (i > 0) release(i - 1);
+    if (i + 1 < stages) load_a(nxt, i + 1);
+  };
+  uint32_t a0[kSteps][4], a1[kSteps][4];
+  load_a(a0, 0);
+  enter_group(false);
+  for (int grp = 0; grp < groups; ++grp) {
+    for (int i = grp * per_group; i < (grp + 1) * per_group; i += 2) {  // per_group is even
+      step(a0, a1, i);
+      step(a1, a0, i + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_a(a0);
+    fence_a(a1);
+    enter_group(true);  // past the last group: unit / sld = 1, acc stays
+  }
+  release(stages - 1);
+
+  // epilogue: acc times its unit, staged row-major through shared memory
+  const float fin[2] = {unit[0], unit[1]};
+  __syncthreads();  // both consumer warpgroups are done with the ring
+  constexpr int kStride = kTileStride<OutT, kCols>;
+  OutT* tile = reinterpret_cast<OutT*>(smem);
+#pragma unroll
+  for (int c = 0; c < kRows / 8; ++c) {  // rows 8c + 2t4 and + 1
+    const int rl = c * 8 + t4 * 2;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tile[(rl + (e & 1)) * kStride + cls[e >> 1]] =
+          from_float<OutT>(__fmul_rn(acc[4 * c + e], fin[e >> 1]));
+  }
+  __syncthreads();
+  store_tile<OutT, kRows, kCols, kThreads>(tile, out, m0, n0, m, n);
+}
+
+// the weight's (N, K/8) int32 map, boxes of 32 columns x `rows` word rows in
+// the 128-byte swizzle; false where cuTensorMapEncodeTiled refuses it
+inline bool word_map(CUtensorMap* map, const uint32_t* w, int k, int n, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)(k / 8)};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+  const cuuint32_t box[2] = {wbox::kCols, (cuuint32_t)rows};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <typename OutT>
+cudaError_t launch_w4a8_wgmma(const int8_t* xq, const uint32_t* w, const float* scale,
+                              const float* rs, OutT* out, int m, int k, int n, int group,
+                              cudaStream_t s) {
   using namespace wg;
-  using C = Cfg<kA8>;
   CUtensorMap x_map, w_map;
-  const int elem = kA8 ? 1 : 2;  // bytes an activation
   const cuuint64_t x_dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
-  const cuuint64_t x_strides[1] = {(cuuint64_t)k * elem};
-  const cuuint32_t x_box[2] = {(cuuint32_t)C::kHalfK, kRows};
-  if (!encode_map(&x_map, kA8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  2, xs, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B))
+  const cuuint64_t x_strides[1] = {(cuuint64_t)k};
+  const cuuint32_t x_box[2] = {(cuuint32_t)kHalfK, kRows};
+  if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, x_dims, x_strides, x_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   // TMA rows must be 16-byte strided: the weight's when N % 4 == 0
   const int w_tma = (n % 4) == 0;
-  const cuuint64_t w_dims[2] = {(cuuint64_t)n, (cuuint64_t)(k / 8)};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)n * 4};
-  const cuuint32_t w_box[2] = {kBox, C::kWordRows};
-  if (w_tma && !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, w_dims, w_strides,
-                           w_box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return cudaErrorInvalidValue;
+  if (w_tma && !word_map(&w_map, w, k, n, kWordRows)) return cudaErrorInvalidValue;
   if (!w_tma) w_map = x_map;  // unused
   static bool smem_set = false;  // per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        wgmma_kernel<kA8, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+        w4a8_wgmma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
   const int blocks = ((n + kCols - 1) / kCols) * ((m + kRows - 1) / kRows);
-  wgmma_kernel<kA8, OutT><<<blocks, kThreads, C::kSmem, s>>>(x_map, w_map, w_tma, w, scale, rs,
-                                                             out, m, k, n, group);
+  w4a8_wgmma_kernel<OutT><<<blocks, kThreads, kSmem, s>>>(x_map, w_map, w_tma, w, scale, rs,
+                                                           out, m, k, n, group);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_a16_wgmma(const bf16* xs, const uint32_t* w, const float* scale, OutT* out,
+                             int m, int k, int n, int group, cudaStream_t s) {
+  using namespace a16;
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t x_box[2] = {64, kRows};
+  if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, xs, x_dims, x_strides, x_box,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const int w_tma = (n % 4) == 0;
+  if (w_tma && !word_map(&w_map, w, k, n, kWordRows)) return cudaErrorInvalidValue;
+  if (!w_tma) w_map = x_map;  // unused
+  static bool smem_set = false;  // per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        a16_wgmma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const int blocks = ((n + kCols - 1) / kCols) * ((m + kRows - 1) / kRows);
+  a16_wgmma_kernel<OutT><<<blocks, kThreads, kSmem, s>>>(x_map, w_map, w_tma, w, scale, out, m,
+                                                         k, n, group);
   return cudaGetLastError();
 }
 
@@ -508,7 +765,7 @@ cudaError_t launch_w4a8(const T* x, int8_t* xq, float* rs, const uint32_t* w,
   quantize_rows_kernel<T><<<m, kQuantThreads, 0, s>>>(x, xq, rs, k);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (m > 16) return launch_wgmma<true, T>(xq, w, scale, rs, out, m, k, n, group, s);
+  if (m > 16) return launch_w4a8_wgmma<T>(xq, w, scale, rs, out, m, k, n, group, s);
   w4a8::SkinnyArgs p{reinterpret_cast<const uint32_t*>(xq), rs, w, scale, nullptr, out,
                      m, k, n, group, group};
   return w4a8::launch_skinny<w4a8::kRowScale, T>(p, s);
@@ -523,7 +780,7 @@ cudaError_t launch_w4a16(const T* x, bf16* xb, const uint32_t* w, const float* s
     if (e != cudaSuccess) return e;
     xs = xb;
   }
-  if (m > 16) return launch_wgmma<false, T>(xs, w, scale, nullptr, out, m, k, n, group, s);
+  if (m > 16) return launch_a16_wgmma<T>(xs, w, scale, out, m, k, n, group, s);
   const dim3 grid((n + kSkCols - 1) / kSkCols, (m + 15) / 16);
   a16_skinny_kernel<T><<<grid, kSkWarps * 32, 0, s>>>(xs, w, scale, out, m, k, n, group);
   return cudaGetLastError();

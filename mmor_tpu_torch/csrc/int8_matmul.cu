@@ -23,16 +23,8 @@
 //    block per row, the plain version's arithmetic, so the two agree bit for
 //    bit); then int32 accumulation, acc * col_scale * row_scale in f32,
 //    stored in the caller's dtype.
-//    * skinny kernel (M <= 16, decode; packed words only): one 16-row
-//      m-tile; a block of eight warps covers 32 columns and splits K
-//      between its warps, so a 4096 column weight spreads over 128 blocks;
-//      operands load straight from device memory (each weight word is used
-//      once), four k-steps of loads in flight per warp before their
-//      products, and the warps' partial sums meet in shared memory. The mma
-//      takes any 8 columns in its n slots, so lane group g owns the four
-//      neighbouring columns 4g..4g+3 of the block, one in each 8-column mma
-//      tile, and fetches their words of a word row at once
-//      (weight_words.cuh's w_words4).
+//    * word stream (M <= 16, decode; packed words only, K2 and K10c's
+//      mxu8 mode): see below (s8_word_stream_kernel).
 //    * stream kernel (M <= 16 on K8's byte layout): see below.
 //    * wgmma kernel (M > 16, prefill; packed words only): see below
 //      (wgmma_kernel<true>, one template with the W8A16 product).
@@ -98,7 +90,57 @@
 //    * folds its warps' s32 sums through shared memory (exact, so the
 //      result is the plain version's bit for bit) and applies acc *
 //      scale[col] * rs[row].
-//  - K10c's mxu8 mode is the same two kernels on K2's own packed words
+//  - K2's word stream (M <= 16 on the packed words): at decode rows every
+//    weight byte meets at most 16 multiply-adds, so device-memory bytes
+//    bound it. Its first form (a skinny kernel: a block of 8 warps on
+//    32 columns, K split between its warps, plain global loads 4 k-steps
+//    deep a warp, the quantize kernel exposed before it) reached 41-70% of
+//    the bound at M 8. The stream:
+//    * gives a block a strip of 32 columns (one 128-byte box of words a
+//      word row) over all of K: warp 0 keeps a ring of 3 stages of 128
+//      word rows (16 KB, one TMA box in the 128-byte swizzle; cp.async
+//      where N % 4 != 0) full, paced by mbarriers. No transpose: a word is
+//      an mma register as it lies in the stage;
+//    * takes the product transposed, W^T xq^T, on mma.m16n8k32.s8: the n = 8
+//      slots are activation rows, so 8 decode rows waste none (two n-tiles
+//      up to 16). 8 consumer warps take 16 word rows of each stage; a
+//      lane's two 16-byte loads of a stage (chunk_of's columns) are the A
+//      registers of four columns without bank conflicts, and its B
+//      registers are 8 bytes of a row of xq, which the quantize kernel
+//      stores in frag_order;
+//    * quantizes x in a kernel of its own (quantize_stream_rows_kernel: K2's
+//      kInverse rule, K10c's kDivide), launched before the product with
+//      programmatic dependent launch: the product's loading warp issues its
+//      weight tiles at once, and the consumers read xq (ordinary loads in
+//      volatile asm, ld_after_wait) and rs only after griddepcontrol.wait;
+//    * folds its warps' s32 tiles through shared memory (exact, so the
+//      result is the plain version's bit for bit) and applies acc *
+//      scale[col] * rs[row] in f32, in that order.
+//    Built and timed against it (development builds, NVIDIA H100 80GB HBM3
+//    at 700 W, the 7B decode shapes at M 8 and 14, each library in a
+//    process of its own): rings of 2, 4 and 8 stages (no faster, and 8
+//    slower at the 4096-column weights, whose 128 strips give one block an
+//    SM); 4 consumer warps (slower at 4096 columns); a cluster of 2 blocks
+//    splitting a strip's K where the strips are fewer than the SMs, the
+//    second block's tiles folded in the first's shared memory (0.0126 ms
+//    against 0.0093 at M 8 x 4096 x 4096, warm); the quantization in the
+//    product's own blocks, the first M to draw a ticket quantizing a row
+//    each and the rest waiting on a count in device memory (a floor of
+//    0.0060 ms at K 64 against 0.0052 with the quantize kernel); such a
+//    count in place of griddepcontrol.wait (0.0058 against 0.0049); no
+//    programmatic dependent launch (3.74 to 4.15 ms over a decode step's
+//    launches, cold). A first build lost bits at M 8 wherever 3-4 blocks
+//    shared an SM (4096 x 11264, the lm_head) and at M 14 with 2 blocks an
+//    SM, whole blocks wrong, the same with or without programmatic
+//    dependent launch: a consumer warp released a stage after its
+//    shared-memory reads (generic proxy) were issued but not ordered before
+//    the next TMA into the stage (async proxy), so that tile's bytes could
+//    land under reads still in flight. release_stage (hopper.cuh) fences
+//    the proxies before the arrival, which every ring here that TMA refills
+//    and ordinary loads read now takes (1-3% on this kernel). Reading xq
+//    by ld.global.nc had hidden it by timing; that path is not allowed for
+//    xq, which the quantize kernel writes while this grid starts.
+//  - K10c's mxu8 mode is the same kernels on K2's own packed words
 //    (WLayout::kWords) with K8's rule (QuantRule::kDivide): bench_bitcast's
 //    pack_rows_int8 is pack_int8_rows, and its epilogue, acc * scale in f32
 //    and then times the row scale, is K2's.
@@ -130,6 +172,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "act_quant.cuh"
 #include "hopper.cuh"
@@ -149,77 +192,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ---------------------------------------------------------------- W8A8 skinny
-constexpr int kSkinnyWarps = 8;
-constexpr int kSkinnyN = 32;
-constexpr int kSkinnyUnroll = 4;  // k-steps a warp loads before its products
-
-template <typename OutT>
-__global__ void __launch_bounds__(kSkinnyWarps * 32)
-s8_skinny_kernel(const uint32_t* __restrict__ xq, const void* __restrict__ w,
-                 const float* __restrict__ scale, const float* __restrict__ rs,
-                 OutT* __restrict__ out, int m, int kw, int n) {
-  constexpr WLayout L = WLayout::kWords;  // K2's and K10c's packed words
-  __shared__ int red[kSkinnyWarps][16][kSkinnyN];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int n0 = blockIdx.x * kSkinnyN;
-  const int steps = kw / 8;  // 8 words = 32 k per step
-
-  int acc[kSkinnyN / 8][4] = {};
-  // each warp takes kSkinnyUnroll consecutive steps at a time and issues all
-  // their loads before the products, so enough bytes are in flight
-  for (int s0 = warp * kSkinnyUnroll; s0 < steps; s0 += kSkinnyWarps * kSkinnyUnroll) {
-    uint32_t a[kSkinnyUnroll][4], b[kSkinnyUnroll][kSkinnyN / 8][2];
-#pragma unroll
-    for (int u = 0; u < kSkinnyUnroll; ++u) {
-      const bool live = s0 + u < steps;
-      const int k0 = (s0 + u) * 8;
-      a[u][0] = live && g < m ? xq[(size_t)g * kw + k0 + t4] : 0u;
-      a[u][1] = live && g + 8 < m ? xq[(size_t)(g + 8) * kw + k0 + t4] : 0u;
-      a[u][2] = live && g < m ? xq[(size_t)g * kw + k0 + t4 + 4] : 0u;
-      a[u][3] = live && g + 8 < m ? xq[(size_t)(g + 8) * kw + k0 + t4 + 4] : 0u;
-      // lane group g owns the four neighbouring columns n0 + 4g .. 4g + 3,
-      // one in each 8-column mma tile
-      const int col = n0 + 4 * g;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = k0 + t4 + 4 * h;
-        uint4 q = make_uint4(0u, 0u, 0u, 0u);
-        if (live && (n % 4) == 0 && col + 3 < n) {
-          q = w_words4<L>(w, r, col, n);
-        } else if (live) {
-          q.x = col < n ? w_word<L>(w, r, col, n) : 0u;
-          q.y = col + 1 < n ? w_word<L>(w, r, col + 1, n) : 0u;
-          q.z = col + 2 < n ? w_word<L>(w, r, col + 2, n) : 0u;
-          q.w = col + 3 < n ? w_word<L>(w, r, col + 3, n) : 0u;
-        }
-        b[u][0][h] = q.x, b[u][1][h] = q.y, b[u][2][h] = q.z, b[u][3][h] = q.w;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kSkinnyUnroll; ++u)
-#pragma unroll
-      for (int nt = 0; nt < kSkinnyN / 8; ++nt) mma_s8(acc[nt], a[u], b[u][nt]);
-  }
-#pragma unroll
-  for (int nt = 0; nt < kSkinnyN / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = t4 * 2 + (e & 1);  // the mma column, block column 4c + nt
-      red[warp][g + (e >> 1) * 8][4 * c + nt] = acc[nt][e];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 16 * kSkinnyN; i += kSkinnyWarps * 32) {
-    const int row = i / kSkinnyN, cl = i % kSkinnyN, col = n0 + cl;
-    if (row >= m || col >= n) continue;
-    int sum = 0;
-    for (int wi = 0; wi < kSkinnyWarps; ++wi) sum += red[wi][row][cl];
-    out[(size_t)row * n + col] = from_float<OutT>((float)sum * scale[col] * rs[row]);
-  }
 }
 
 // --------------------------------------------- W8A8 skinny, byte weight (K8)
@@ -277,17 +249,27 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 }
 }  // namespace sk
 
-// K8's activation rows (quantize_rows_kernel's kDivide rule: x / scale in
-// f32, rounded half to even, clipped to +-127), one block a row, each
-// thread 16 neighbouring k a pass held in registers between the row's amax
-// and its quantization, stored as one 16-byte chunk in mma_order. The
-// product launched after it may start at once (programmatic dependent
-// launch).
+// The stream kernels' activation rows, one block a row:
+// quantize_rows_kernel's arithmetic under rule R (kDivide for K8 and K10c's
+// mxu8 mode, kInverse for K2), each thread 16 neighbouring k a pass held in
+// registers between the row's amax and its quantization, stored in the
+// order the product's registers want, within each 32 k: K8's mma_order
+// (one 16-byte chunk a thread), or with kFrag K2's frag_order (four 4-byte
+// words a thread). The product launched after it may start at once
+// (programmatic dependent launch).
 constexpr int kQuantK = 16;
-template <typename T>
+
+// K2's word stream reads its B registers as 8 bytes of a row a lane: k =
+// 16h + 4t + b (h in {0, 1}; t, b in 0..3) is stored at 8t + 4h + b within
+// its 32, so that a lane's k 4t.. and 16 + 4t.. are one 8-byte load.
+__host__ __device__ constexpr int frag_order(int k) {
+  return (k & ~31) | (((k >> 2) & 3) << 3) | (((k >> 4) & 1) << 2) | (k & 3);
+}
+
+template <typename T, QuantRule R, bool kFrag>
 __global__ void __launch_bounds__(kQuantThreads)
-quantize_mma_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                         float* __restrict__ row_scale, int k) {
+quantize_stream_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
+                            float* __restrict__ row_scale, int k) {
   using namespace sk;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ float red[kQuantThreads / 32];
@@ -308,18 +290,27 @@ quantize_mma_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
       u[8 + e] = i < k ? hi[e] : 0.f;
     }
   };
-  // k i + e goes to byte mma_order(e) of the 16 (i is a multiple of 16)
-  auto store = [&](int ps, const float (&u)[kQuantK], float scale) {
+  // k i + e goes to byte mma_order(e) of the 16 (i is a multiple of 16), or
+  // to frag_order(i + e) of the row
+  auto store = [&](int ps, const float (&u)[kQuantK], float scale, float inv) {
     const int i = (ps * kQuantThreads + threadIdx.x) * kQuantK;
     if (i >= k) return;
     uint32_t q[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int e = 0; e < kQuantK; ++e) {
-      const int pos = mma_order(e);
-      const uint32_t b = (uint32_t)(int)fminf(fmaxf(rintf(u[e] / scale), -127.f), 127.f) & 0xffu;
+      const float v = R == QuantRule::kDivide ? rintf(u[e] / scale)
+                                              : rintf(to_float(from_float<T>(u[e] * inv)));
+      const uint32_t b = (uint32_t)(int)fminf(fmaxf(v, -127.f), 127.f) & 0xffu;
+      const int pos = kFrag ? e : mma_order(e);
       q[pos >> 2] |= b << (8 * (pos & 3));
     }
-    *reinterpret_cast<uint4*>(qr + i) = make_uint4(q[0], q[1], q[2], q[3]);
+    if constexpr (kFrag) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(qr + frag_order(i + 4 * j)) = q[j];
+    } else {
+      *reinterpret_cast<uint4*>(qr + i) = make_uint4(q[0], q[1], q[2], q[3]);
+    }
   };
   constexpr int kHeld = 2;  // passes held in registers (K <= 8192); later ones read x again
   float v[kHeld][kQuantK];
@@ -343,13 +334,14 @@ quantize_mma_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
 #pragma unroll
   for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, red[w]);
   const float scale = amax > 0.f ? amax / 127.f : 1.f;
+  const float inv = to_float(from_float<T>(1.f / scale));
   if (threadIdx.x == 0) row_scale[blockIdx.x] = scale;
 #pragma unroll
-  for (int ps = 0; ps < kHeld; ++ps) store(ps, v[ps], scale);
+  for (int ps = 0; ps < kHeld; ++ps) store(ps, v[ps], scale, inv);
   for (int ps = kHeld; ps < passes; ++ps) {
     float u[kQuantK];
     load(ps, u);
-    store(ps, u, scale);
+    store(ps, u, scale, inv);
   }
 }
 
@@ -363,7 +355,7 @@ __global__ void __launch_bounds__(sk::kThreads, 1)
 s8_stream_kernel(const __grid_constant__ CUtensorMap x_map,
                  const __grid_constant__ CUtensorMap w_map, int w_tma,
                  const uint8_t* __restrict__ w, const float* __restrict__ scale,
-                 const float* __restrict__ rs, OutT* __restrict__ out, int m, int k, int n) {
+                 const float* rs, OutT* __restrict__ out, int m, int k, int n) {
   using namespace sk;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -459,8 +451,7 @@ s8_stream_kernel(const __grid_constant__ CUtensorMap x_map,
       for (int j = 0; j < 8; ++j)
         rw[j] = *reinterpret_cast<const uint4*>(
             st + swz(32 * c + 2 * t4 + (j & 1) + 8 * (j >> 1), 16 * g));
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);  // the tile's bytes are in registers
+      release_stage(&empty[s], lane);  // the tile's bytes are in registers
       uint32_t b[16][2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -536,7 +527,8 @@ cudaError_t launch_s8_stream(const T* x, int8_t* xq, float* rs, const uint8_t* w
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  quantize_mma_rows_kernel<T><<<m, kQuantThreads, 0, s>>>(x, xq, rs, k);
+  quantize_stream_rows_kernel<T, QuantRule::kDivide, false><<<m, kQuantThreads, 0, s>>>(
+      x, xq, rs, k);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // the product may start while the quantize kernel runs and issue its
@@ -553,6 +545,220 @@ cudaError_t launch_s8_stream(const T* x, int8_t* xq, float* rs, const uint8_t* w
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, s8_stream_kernel<T>, x_map, w_map, w_tma, w, scale,
                             static_cast<const float*>(rs), out, m, k, n);
+}
+
+// ------------------------------------------- W8A8 word stream (K2, M <= 16)
+namespace ws {
+constexpr int kCols = wbox::kCols;  // weight columns a block: one 128-byte box of words
+constexpr int kConsumers = 8;       // consumer warps, 16 word rows of each stage apiece
+constexpr int kThreads = 32 * (1 + kConsumers);  // warp 0 loads
+constexpr int kRows = 128;                       // word rows a stage: one 16 KB TMA box
+constexpr int kStageBytes = kRows * kCols * 4;
+constexpr int kStages = 3;  // 2 and 4 streamed no faster on the card, 8 slower
+constexpr int kPerWarp = kRows / 8 / kConsumers;  // k-steps of a stage a consumer takes
+constexpr int kSmem = 1024 + kStages * (kStageBytes + 16);
+static_assert(kConsumers * 16 * kCols * 4 <= kStages * kStageBytes, "fold buffer");
+// the 16-byte chunk of a word row (four columns) that lane group g loads:
+// in each quarter warp (g = 2p, 2p + 1) the two chunks differ in bit 2, so
+// their swizzled places over the lanes' four word rows are 8 distinct
+__device__ __forceinline__ int chunk_of(int g) { return (g >> 1) | ((g & 1) << 2); }
+// 8 bytes of xq, which the quantize kernel writes while this grid starts:
+// an ordinary load (not the read-only path, which PTX allows only for data
+// that nothing writes during the kernel's life; griddepcontrol.wait makes
+// the quantize kernel's writes visible to it, L1 included) in volatile asm
+// with a memory clobber, so that neither nvcc nor ptxas issues it before
+// that wait. Through L2 only (ld.global.cg) it took 3-12% longer.
+__device__ __forceinline__ uint2 ld_after_wait(const int8_t* p) {
+  uint2 v;
+  asm volatile("ld.global.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "l"(p) : "memory");
+  return v;
+}
+}  // namespace ws
+
+// K2's W8A8 product at up to 16 rows (kNT 8-row groups). Block `strip`
+// streams weight columns 32 strip.. over all of K: w_map is the (N, K/4)
+// int32 word map, boxes of 32 columns x 128 word rows in the 128-byte
+// swizzle, when N % 4 == 0 (w_tma); otherwise warp 0 copies the words by
+// cp.async into the same layout. xq (frag_order) and rs are the quantize
+// kernel's.
+template <typename OutT, int kNT>
+__global__ void __launch_bounds__(ws::kThreads)
+s8_word_stream_kernel(const __grid_constant__ CUtensorMap w_map, int w_tma,
+                      const uint32_t* __restrict__ w, const int8_t* xq, const float* rs,
+                      const float* __restrict__ scale, OutT* __restrict__ out, int m, int k,
+                      int n) {
+  using namespace ws;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kCols, kw = k / 4;
+  const int tiles = (kw + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA bytes' arrival, or each lane's where warp 0 copies the words
+      mbar_init(&full[s], w_tma ? 1 : 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int acc[2][kNT][4] = {};  // 16-column m-tile, 8-row n-tile
+  if (warp == 0) {
+    // ------------------------------------------------------------ producer
+    // word tile i into stage i % kStages once the consumers have released
+    // the tile it held
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) {
+        if (lane == 0) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        __syncwarp();
+      }
+      uint8_t* st = smem + s * kStageBytes;
+      const int r0 = i * kRows;
+      if (w_tma) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_2d(st, &w_map, &full[s], n0, r0);
+        }
+      } else {
+        for (int c = lane; c < kRows * kCols; c += 32) {
+          const int r = c / kCols, col = c % kCols, wr = r0 + r;
+          const bool in = wr < kw && n0 + col < n;
+          cp_async4(reinterpret_cast<uint32_t*>(st) + wbox::swz(r, col),
+                    in ? w + (size_t)wr * n + n0 + col : w, in ? 4 : 0);
+        }
+        cp_async_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    // The product is taken transposed, W^T xq^T, on mma.m16n8k32.s8: a word
+    // (4 k of a column) is an A register as it lies in the stage, and the
+    // n = 8 slots are 8 activation rows. Consumer c takes word rows
+    // 16c .. 16c + 15 of each stage, 8 a k-step: lane (g, t4) loads the
+    // 16-byte chunk chunk_of(g) (columns 4cc .. 4cc + 3) of word rows t4
+    // and 4 + t4 of the step, the A registers of fragment rows g and g + 8
+    // of two m-tiles (columns 4cc, 4cc + 1 of m-tile 0, 4cc + 2, 4cc + 3 of
+    // m-tile 1), and 8 bytes of row g (and g + 8) of xq, its B registers
+    // (frag_order).
+    const int c = warp - 1, cc = chunk_of(g);
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");  // xq is the quantize kernel's
+    const int8_t* xr[kNT];
+    bool live[kNT];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      live[nt] = g + 8 * nt < m;
+      xr[nt] = xq + (size_t)(live[nt] ? g + 8 * nt : 0) * k + 8 * t4;
+    }
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % kStages;
+      // this tile's activations first: their loads overlap the wait
+      uint2 xv[kPerWarp][kNT];
+#pragma unroll
+      for (int j = 0; j < kPerWarp; ++j) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int k0 = 4 * (i * kRows + (c * kPerWarp + j) * 8);
+          xv[j][nt] = live[nt] && k0 < k ? ld_after_wait(xr[nt] + k0) : make_uint2(0u, 0u);
+        }
+      }
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint32_t* st = reinterpret_cast<const uint32_t*>(smem + s * kStageBytes);
+#pragma unroll
+      for (int j = 0; j < kPerWarp; ++j) {
+        const int r0 = (c * kPerWarp + j) * 8;  // the step's first word row: a multiple of 8
+        const uint4 v1 =
+            *reinterpret_cast<const uint4*>(st + (r0 + t4) * kCols + ((cc ^ t4) << 2));
+        const uint4 v2 =
+            *reinterpret_cast<const uint4*>(st + (r0 + 4 + t4) * kCols + ((cc ^ (4 + t4)) << 2));
+        const uint32_t a0[4] = {v1.x, v1.y, v2.x, v2.y}, a1[4] = {v1.z, v1.w, v2.z, v2.w};
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const uint32_t b[2] = {xv[j][nt].x, xv[j][nt].y};
+          mma_s8(acc[0][nt], a0, b);
+          mma_s8(acc[1][nt], a1, b);
+        }
+      }
+      release_stage(&empty[s], lane);  // the stage's words are in registers
+    }
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // rs is the quantize kernel's
+
+  // the consumers' s32 partial tiles meet in shared memory (the ring is
+  // idle: every tile has been consumed), then acc * scale[col] * rs[row]
+  __syncthreads();
+  int* fold = reinterpret_cast<int*>(smem);  // [consumer][row][column]
+  if (warp > 0) {
+    const int c = warp - 1, cc = chunk_of(g);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // fragment row g + 8 (e >> 1), column 2t4 + (e & 1)
+          fold[(c * 16 + nt * 8 + 2 * t4 + (e & 1)) * kCols + 4 * cc + 2 * mt + (e >> 1)] =
+              acc[mt][nt][e];
+  }
+  __syncthreads();
+  const int out_rows = m < 8 * kNT ? m : 8 * kNT;
+  for (int o = threadIdx.x; o < out_rows * kCols; o += kThreads) {
+    const int row = o / kCols, cl = o % kCols, col = n0 + cl;
+    if (col >= n) continue;
+    int sum = 0;
+#pragma unroll
+    for (int c = 0; c < kConsumers; ++c) sum += fold[(c * 16 + row) * kCols + cl];
+    out[(size_t)row * n + col] = from_float<OutT>((float)sum * scale[col] * rs[row]);
+  }
+}
+
+// K2 (rule kInverse) and K10c's mxu8 mode (kDivide) at up to 16 rows: the
+// quantize kernel, then the word stream with programmatic dependent launch
+// (it may start while the quantize kernel runs and issue its weight tiles;
+// it reads xq and rs only after griddepcontrol.wait)
+template <typename T, QuantRule R, int kNT>
+cudaError_t launch_word_stream(const T* x, int8_t* xq, float* rs, const uint32_t* w,
+                               const float* scale, T* out, int m, int k, int n, cudaStream_t s) {
+  using namespace ws;
+  CUtensorMap w_map;
+  // TMA rows must be 16-byte strided: the weight's when N % 4 == 0
+  const int w_tma = (n % 4) == 0;
+  if (w_tma) {
+    const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)(k / 4)};
+    const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+    const cuuint32_t box[2] = {kCols, kRows};
+    if (!encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+  } else {
+    memset(&w_map, 0, sizeof(w_map));  // unused
+  }
+  static bool smem_set = false;  // per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        s8_word_stream_kernel<T, kNT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  quantize_stream_rows_kernel<T, R, true><<<m, kQuantThreads, 0, s>>>(x, xq, rs, k);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kCols - 1) / kCols);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, s8_word_stream_kernel<T, kNT>, w_map, w_tma, w,
+                            static_cast<const int8_t*>(xq), static_cast<const float*>(rs), scale,
+                            out, m, k, n);
 }
 
 // ----------------------------------------------------------------- W8A8 tiled
@@ -800,8 +1006,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   // tile t's products are done: release its stage, and warp 0 refills it
   // with tile t + kStages once the other warps have released it too
   auto release = [&](int t) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[t % C::kStages]);
+    release_stage(&empty[t % C::kStages], lane);
     if (loader && t + C::kStages - 1 < tiles) produce(t + C::kStages - 1);
   };
   // one tile's products stay in flight while the next tile's fragments load:
@@ -920,27 +1125,27 @@ cudaError_t launch_wgmma(const void* xs, const uint32_t* w, const float* scale,
 template <typename T, WLayout L = WLayout::kWords,
           QuantRule R = QuantRule::kInverse>
 cudaError_t launch_w8a8(const void* x, void* xq, void* row_scale, const void* w,
-                        const float* scale, void* out, int m, int k, int n,
-                        cudaStream_t s) {
+                        const float* scale, void* out, int m, int k, int n, cudaStream_t s) {
   float* rs = static_cast<float*>(row_scale);
-  quantize_rows_kernel<T, R><<<m, kQuantThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(xq), rs, k);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int kw = k / 4;
-  const uint32_t* x32 = static_cast<const uint32_t*>(xq);
+  const T* xt = static_cast<const T*>(x);
+  int8_t* q = static_cast<int8_t*>(xq);
   T* o = static_cast<T*>(out);
   if constexpr (L == WLayout::kWords) {
-    if (m > 16)
-      return launch_wgmma<true, T>(xq, static_cast<const uint32_t*>(w), scale, rs, o, m, k, n,
-                                   s);
-    s8_skinny_kernel<T><<<(n + kSkinnyN - 1) / kSkinnyN, kSkinnyWarps * 32, 0, s>>>(
-        x32, w, scale, rs, o, m, kw, n);
+    const uint32_t* w32 = static_cast<const uint32_t*>(w);
+    if (m <= 8) return launch_word_stream<T, R, 1>(xt, q, rs, w32, scale, o, m, k, n, s);
+    if (m <= 16) return launch_word_stream<T, R, 2>(xt, q, rs, w32, scale, o, m, k, n, s);
+  }
+  quantize_rows_kernel<T, R><<<m, kQuantThreads, 0, s>>>(xt, q, rs, k);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if constexpr (L == WLayout::kWords) {
+    return launch_wgmma<true, T>(xq, static_cast<const uint32_t*>(w), scale, rs, o, m, k, n, s);
   } else {  // K8 at M > 16 (at M <= 16 it is launch_s8_stream)
     dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
-    s8_tiled_kernel<T, L><<<grid, 128, 0, s>>>(x32, w, scale, rs, o, m, kw, n);
+    s8_tiled_kernel<T, L><<<grid, 128, 0, s>>>(static_cast<const uint32_t*>(xq), w, scale, rs,
+                                               o, m, k / 4, n);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // W8A16: f32 x rounded to bf16 into xb first; then the wgmma kernel above

@@ -579,8 +579,7 @@ core_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ C
           if (cpu > 1 && (kr + 128) % p.chunk == 0) fold(d, kr / p.chunk, 0);
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);  // the stage's words are in registers
+      release_stage(&empty[s], lane);  // the stage's words are in registers
     }
     // the unit's end
     if constexpr (SPLIT) {

@@ -1,5 +1,6 @@
-// Weight-word loaders shared by the W8A8 kernels (int8_matmul.cu: K2, K8)
-// and the weight-stream kernels (stream_matmul.cu: K10a, K10b). A word is
+// Weight-word loaders shared by K8's tiled kernel (int8_matmul.cu), the
+// weight-stream kernels (stream_matmul.cu: K10a, K10b) and the megakernel
+// probe (megakernel_probe.cu). A word is
 // the 32 bits of one column that feed one thread's mma B register:
 //  - kWords: the weight is already (R, N) int32 words (pack_int8_rows'
 //    rows 4r..4r+3, or the slab words of pack4_int8 / pack8_int4), one

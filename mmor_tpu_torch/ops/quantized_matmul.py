@@ -85,8 +85,10 @@ def int8_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     CPU: ``int8_matmul_packed_plain``. CUDA: the ``csrc/int8_matmul.cu``
     kernels (bf16 or f32 x; K a multiple of 64). With ``int8_mxu``, W8A8: a
     row-quantization kernel (``quantize_rows``' arithmetic), then the int8
-    tensor cores (``mma.sync`` at up to 16 rows, ``wgmma`` fed by TMA
-    above). Otherwise W8A16, the TPU branch's numerics: x in bf16 (f32 x
+    tensor cores (at up to 16 rows a weight stream by TMA through
+    ``mma.sync``, launched to overlap the quantization; ``wgmma`` fed by TMA
+    above). Otherwise
+    W8A16, the TPU branch's numerics: x in bf16 (f32 x
     rounded by a pre-pass), exact bf16 products summed in f32 on the
     tensor cores, the int8 weights converted in registers (``wgmma`` above
     16 rows, ``stream_matmul.cu``'s row-word ``mma.sync`` kernel at up to
@@ -282,7 +284,9 @@ def int4_matmul_packed(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor,
     ``int8_mxu``, W4A8, K2's row quantization and then the int8 tensor cores
     (``mma.sync`` at up to 16 rows, ``wgmma`` fed by TMA above); otherwise
     W4A16, x in bf16 (f32 x rounded by a pre-pass) on the bf16 tensor cores
-    with the nibbles converted in registers. Counts its launches in
+    with the nibbles converted in registers, each group's sum folded into
+    one running sum rescaled at the group's boundary (a zero scale's group
+    adds nothing; nothing divides by it). Counts its launches in
     ``int4_matmul_packed.launches`` (W4A8) and ``.a16_launches`` (W4A16)."""
     m, k = x.shape
     kp, n = w_p.shape

@@ -10,7 +10,10 @@ rows bit-identical with and without them), each K5 case at the four
 (weight, KV cache) width pairs, and a cache whose dtype does not match its
 width; K3's two branches (W4A8 and W4A16) at M 1, 13, 16, 17, 64, 70, 100
 and 300, N % 128 != 0 and N % 4 != 0 (cp.async words), one group and
-several of 256 and 1024 rows, bf16 and f32 x, with a zero row; K5's weight
+several of 256 and 1024 rows, bf16 and f32 x, with a zero row, and the
+W4A16 kernel's rescaled fold at scales spanning 2^-20..2^20 and zero
+scales; K2's W8A8 word stream at M 1, 8, 14 and 16 with N % 32 != 0 and
+N % 4 != 0, bf16 and f32 x, and 48 calls of it queued back to back; K5's weight
 core alone (``mega_project``) bit for bit at the four 7B
 projections, both widths and R 1, 8, 14, 16, 17 and 136, and at ragged
 edges (N not a multiple of the strip, N % 4 != 0 by cp.async, odd chunk
@@ -275,6 +278,52 @@ def test_int8_matmul_kernel(dev, m, k, n, dtype):
     assert rel_l2(out16, ref16) <= 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 4100),     # one row; N % 32 != 0: a ragged strip by TMA
+    (8, 4160, 4130),     # the decode rows; N % 4 != 0: the words by cp.async
+    (14, 11264, 4100),   # bench_decode_parts' batch: two 8-row n-tiles, a deep ring
+    (16, 4096, 32000),   # the kernel's last row count at the lm_head's width
+    (16, 192, 70),       # one ragged stage, N % 4 != 0
+])
+def test_int8_matmul_word_stream_kernel(dev, m, k, n, dtype):
+    """K2's W8A8 product at up to 16 rows (the word stream) bit for bit
+    against the plain version, a zero row taking row scale 1."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    x[0] = 0
+    w_q, scale = Q.quantize_weights(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    w_p = Q.pack_int8_rows(w_q)
+    before = Q.int8_matmul_packed.launches
+    out = Q.int8_matmul_packed(x, w_p, scale)
+    ref = Q.int8_matmul_packed_plain(x, w_p, scale)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul_packed.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,n", [(8, 32000), (14, 11264)])
+def test_int8_matmul_word_stream_back_to_back(dev, m, n):
+    """K2's word stream starts while its quantize kernel still writes the
+    activation rows (programmatic dependent launch) and reads them only
+    after griddepcontrol.wait: 48 calls queued back to back at the lm_head's
+    and gate_up's widths, each on other x through the scratch that the
+    caching allocator hands back to every call, every result bit for bit
+    the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    k, calls = 4096, 48
+    xs = randn(g, calls, m, k, dev=dev)
+    w_q, scale = Q.quantize_weights(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    w_p = Q.pack_int8_rows(w_q)
+    torch.cuda.synchronize()
+    outs = [Q.int8_matmul_packed(x, w_p, scale) for x in xs]
+    torch.cuda.synchronize()
+    wrong = [i for i, (x, out) in enumerate(zip(xs, outs))
+             if not torch.equal(out, Q.int8_matmul_packed_plain(x, w_p, scale))]
+    assert wrong == []
+
+
 @pytest.mark.parametrize("m,k,n,dtype", [
     (1, 4096, 4096, torch.bfloat16),     # the row-word kernel at one row
     (16, 4096, 4100, torch.bfloat16),    # its last row count, N off its 32-column blocks
@@ -531,6 +580,37 @@ def test_int4_matmul_kernel(dev, m, k, n, group, dtype):
     assert out16.dtype == dtype and out16.shape == (m, n)
     assert not out16[0].any()
     assert rel_l2(out16, ref16) <= (1e-3 if dtype == torch.bfloat16 else 5e-3)
+
+
+@pytest.mark.parametrize("m,k,n,group,dtype", [
+    (17, 512, 130, 256, torch.bfloat16),      # one row past the decode kernels, cp.async words
+    (300, 2048, 4100, 256, torch.bfloat16),   # 8 groups of 256, N off the 128-column tiles
+    (300, 4096, 384, 1024, torch.float32),    # two 256-row tiles, 4 groups, f32 x
+])
+def test_int4_matmul_w4a16_fold_takes_scale_spans_and_zeros(dev, m, k, n, group, dtype):
+    """K3's W4A16 kernel above 16 rows rescales its one running sum at each
+    group's boundary: a column's scales spanning 2^-20 to 2^20 across its
+    groups, zero group scales, a column zero in every group and a whole
+    group zero, against the plain version within rel_l2 1e-3 (bf16 x) or
+    5e-3 (f32 x, rounded to bf16 first), every value finite and the zero
+    column exactly 0 (nothing divides by a zero scale)."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    x[0] = 0
+    w_q, scale = Q.quantize_weights_int4(torch.randn(k, n, generator=g, device=dev) * 0.05,
+                                         group)
+    scale = scale * torch.exp2(torch.randint(-20, 21, scale.shape, generator=g,
+                                             device=dev).float())
+    scale[1, ::5] = 0
+    scale[:, 3] = 0
+    scale[-1] = 0
+    w_p = Q.pack_int4_rows(w_q, group)
+    out = Q.int4_matmul_packed(x, w_p, scale, group=group, int8_mxu=False)
+    ref = Q.int4_matmul_packed_plain(x, w_p, scale, group=group, int8_mxu=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    assert not out[:, 3].any() and not out[0].any()
+    assert rel_l2(out, ref) <= (1e-3 if dtype == torch.bfloat16 else 5e-3)
 
 
 WIDTHS = [(4, 4), (8, 8), (4, 8), (8, 4)]

@@ -199,6 +199,103 @@ def test_int8_matmul_w8a8_matches_tpu_arithmetic():
     assert rel_l2(out, f32) <= 2e-2
 
 
+# K2's W8A8 product at up to 16 rows (csrc/int8_matmul.cu,
+# s8_word_stream_kernel) stated index by index on the CPU: the quantize
+# kernel's frag_order store, each lane's mma.m16n8k32 registers (the weight
+# words as A, 8 bytes of an activation row as B), the consumer warps'
+# k-steps of each ring stage, and the fold of their s32 tiles. It documents
+# the layout; the kernel itself is held bit for bit on the card
+# (tests/test_torch_kernels_cuda.py, chip_smoke.py phase 2).
+LANE = torch.arange(32)
+G, T4 = LANE // 4, LANE % 4
+CHUNK = (G >> 1) | ((G & 1) << 2)  # the kernel's chunk_of(g)
+KB = 4 * T4[:, None] + torch.arange(4)  # a lane's k within a fragment's half
+
+
+def frag_order(k: torch.Tensor) -> torch.Tensor:
+    return (k & ~31) | (((k >> 2) & 3) << 3) | (((k >> 4) & 1) << 2) | (k & 3)
+
+
+def word_stream_model(xq, rs, w_p, scale, out_dtype, rows: int = 128, consumers: int = 8):
+    """The kernel's W8A8 result from int8 rows xq (M <= 16, K) with row
+    scales rs, pack_int8_rows words w_p (K/4, N) and column scales: stages
+    of ``rows`` word rows, each split between ``consumers`` warps."""
+    m, k = xq.shape
+    kw, n = w_p.shape
+    nt_count = 1 if m <= 8 else 2
+    xf = torch.zeros(16, k, dtype=torch.int64)  # rows past M read as 0
+    xf[:m, frag_order(torch.arange(k))] = xq.long()
+    w8 = tqmm.unpack_int8_rows(w_p).long()  # byte b of word (r, c) is w8[4r + b, c]
+
+    def word_bytes(r, cols):  # (32 lanes, 4 bytes) of words (r[lane], cols[lane])
+        ok = (r < kw)[:, None] & (cols < n)[:, None]
+        rr = (4 * r[:, None] + torch.arange(4)).clamp(max=k - 1)
+        return torch.where(ok, w8[rr, cols.clamp(max=n - 1)[:, None]], 0)
+
+    out = torch.empty(m, n)
+    per_warp = rows // 8 // consumers
+    for strip in range((n + 31) // 32):
+        red = torch.zeros(consumers, 16, 32, dtype=torch.int64)
+        for c in range(consumers):
+            acc = torch.zeros(2, nt_count, 32, 4, dtype=torch.int64)
+            for i in range((kw + rows - 1) // rows):
+                for j in range(per_warp):
+                    r0 = i * rows + (c * per_warp + j) * 8
+                    cols = 32 * strip + 4 * CHUNK
+                    v1 = [word_bytes(r0 + T4, cols + q) for q in range(4)]
+                    v2 = [word_bytes(r0 + 4 + T4, cols + q) for q in range(4)]
+                    k0 = 4 * r0
+                    for mt in range(2):  # the m16n8k32 A fragment layout
+                        amat = torch.zeros(16, 32, dtype=torch.int64)
+                        amat[G[:, None], KB] = v1[2 * mt]
+                        amat[G[:, None] + 8, KB] = v1[2 * mt + 1]
+                        amat[G[:, None], KB + 16] = v2[2 * mt]
+                        amat[G[:, None] + 8, KB + 16] = v2[2 * mt + 1]
+                        for nt in range(nt_count):  # B: 8 bytes of row g at 32s + 8t
+                            bmat = torch.zeros(32, 8, dtype=torch.int64)
+                            if k0 < k:
+                                b = xf[G[:, None] + 8 * nt, k0 + 8 * T4[:, None] + torch.arange(8)]
+                                bmat[KB, G[:, None]] = b[:, :4]
+                                bmat[KB + 16, G[:, None]] = b[:, 4:]
+                            cmat = amat @ bmat
+                            for e in range(4):  # c[e] = C[g + 8 (e >> 1)][2t + (e & 1)]
+                                acc[mt, nt, :, e] += cmat[G + 8 * (e >> 1), 2 * T4 + (e & 1)]
+            for mt in range(2):
+                for nt in range(nt_count):
+                    for e in range(4):
+                        red[c, nt * 8 + 2 * T4 + (e & 1), 4 * CHUNK + 2 * mt + (e >> 1)] = \
+                            acc[mt, nt, :, e]
+        total = red.sum(0)[:m]
+        cols = slice(32 * strip, min(32 * strip + 32, n))
+        width = cols.stop - cols.start
+        out[:, cols] = (total[:, :width].float() * scale[cols][None, :] * rs[:, None])
+    return out.to(out_dtype)
+
+
+def test_int8_matmul_word_stream_model_matches_jax_tpu_body(tpu_body):
+    """K2's decode kernel's layout, index by index (``word_stream_model``:
+    128 word rows a stage, 8 consumer warps), bit for bit against the TPU
+    kernel's W8A8 body (interpret mode) and the port's plain version, at M
+    14 (two 8-row n-tiles, the second cut short) with bf16 x and K 384 (a
+    ragged last stage); the body's columns come in blocks of 128, so N is
+    256 here (the card tests take N off the kernel's 32-column strips)."""
+    rng = np.random.default_rng(7)
+    m, dtype, k, n = 14, "bf16", 384, 256
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    x[0, :] = 0  # a zero row takes row scale 1
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    x = np.array(jnp.asarray(x).astype(jdt).astype(jnp.float32))
+    w_q, scale = jqmm.quantize_weights(jnp.asarray(rng.standard_normal((k, n)) * 0.05))
+    w_p, scale = np.array(jqmm.pack_int8_rows(w_q)), np.array(scale)
+    ref = np.asarray(jqmm.int8_matmul_packed(jnp.asarray(x).astype(jdt), jnp.asarray(w_p),
+                                             jnp.asarray(scale)).astype(jnp.float32))
+    xt, wt, st = torch.from_numpy(x).to(tdt), torch.from_numpy(w_p), torch.from_numpy(scale)
+    np.testing.assert_array_equal(tqmm.int8_matmul_packed(xt, wt, st).float().numpy(), ref)
+    xq, rs = tqmm.quantize_rows(xt)
+    got = word_stream_model(xq, rs, wt, st, tdt)
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_quantize_llama_params_bit_exact(fused):
     rng = np.random.default_rng(4)

@@ -12,8 +12,9 @@ Phases (each prints its lines; any failure exits non-zero):
    widths (K5-int8), and the microbenchmark kernels K10a-K10f from
    ``mmor_tpu_torch/csrc`` (one nvcc a source), and prints the registers,
    stack frame and spills of each kernel compiled from ``mega_decode.cu``,
-   ``fused_mlp.cu``, ``flash_attention.cu`` and ``decode_attention.cu``, of
-   K2's and K3's wgmma kernels, K8's stream kernel and K10f's product;
+   ``fused_mlp.cu``, ``flash_attention.cu``, ``decode_attention.cu`` and
+   ``ms_deform_attn.cu`` (K6's two forms), of K2's and K3's wgmma kernels,
+   K8's stream kernel, K10b's slab stream and K10f's product;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -47,7 +48,11 @@ Phases (each prints its lines; any failure exits non-zero):
    bit-identical to the same call without the chunk; K3's two branches at
    the 7B projections, W4A8 bit for bit at M 8 and 5664, W4A16 within
    K3_A16_BOUND at M 8, 14 and 5664 (its library ``torch.matmul`` on the
-   weight dequantized to bf16), both at ragged edges;
+   weight dequantized to bf16), both at ragged edges; K6 at the serving
+   shape also bit for bit against the order model of each channel's f32
+   operations (``tests/test_torch_deform_sampler.py``), in both its
+   templated and its generic form; K10b at one row, three m-tiles, N % 4
+   != 0, f32 x and each format's smallest K;
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
@@ -1364,6 +1369,31 @@ def _perf_cases(dev):
                 lambda w_p=w_p, sc=sc, kw=kw: P.wp_matmul_plain(x, w_p, sc, **kw),
                 1e-3, 20, True, m * kdim * 2 + kdim * n * bits // 8 + n * 4 + m * n * 2,
                 {"bf16": 2.0 * m * kdim * n}, library=library))
+    # K10b's slab stream off the benches' shape: one row, three 16-row
+    # m-tiles with N % 4 != 0 (the words by cp.async), f32 x (rounded to
+    # bf16 by the kernel, as by the plain version: f32 sums alone differ),
+    # and the smallest K of each format
+    for name, m, kdim, n, dtype in (("w4p", 1, 4096, 11264, bf),
+                                    ("w8p", 40, 4096, 1030, torch.float32),
+                                    ("w4p", 5, 32, 4100, bf),
+                                    ("w8p", 16, 16, 70, torch.float32)):
+        parts, bits = (4, 8) if name == "w8p" else (8, 4)
+        w = torch.randn(kdim, n, generator=g, device=dev) * 0.02
+        if bits == 8:
+            w_q, sc = Q.quantize_weights(w)
+            w_p = P.pack4_int8(w_q)
+        else:
+            w4, s4 = P.quantize_int4_channels(w[None])
+            w_p, sc = P.pack8_int4(w4[0]), s4[0]
+        xe = torch.randn(m, kdim, generator=g, device=dev).to(dtype)
+        kw = dict(parts=parts, bits=bits)
+        cases.append(Case(
+            "K10b wp_matmul", f"edge {name} M={m} K={kdim} N={n} {str(dtype).split('.')[-1]} x",
+            lambda xe=xe, w_p=w_p, sc=sc, kw=kw: P.wp_matmul(xe, w_p, sc, **kw),
+            lambda xe=xe, w_p=w_p, sc=sc, kw=kw: P.wp_matmul_plain(xe, w_p, sc, **kw),
+            1e-3 if dtype == bf else 1e-5, 3, False,
+            m * kdim * xe.element_size() + kdim * n * bits // 8 + n * 4
+            + m * n * xe.element_size(), {"bf16": 2.0 * m * kdim * n}))
 
     B, H, T, D = 14, 32, 1024, 128
     k8, v8 = (torch.randint(-127, 128, (B, H, T, D), generator=g, device=dev,
@@ -1704,8 +1734,35 @@ def _k6_cases(dev, g):
             lambda s=shapes, a=args: ms_deform_attn(a[0], s, a[1], a[2]),
             K6_BOUND["bf16" if dtype == torch.bfloat16 else "f32"], 20, on_path,
             nbytes, ops,
-            library=lambda s=shapes, a=args: grid_sample_core(a[0], s, a[1], a[2])))
+            library=lambda s=shapes, a=args: grid_sample_core(a[0], s, a[1], a[2]),
+            extra=(lambda out, ref, s=shapes, a=args: k6_order_check(out, s, *a))
+            if on_path else None))
     return cases
+
+
+def k6_order_check(out, shapes, value, loc, attn) -> dict:
+    """K6 at the serving shape bit for bit against the order model
+    (``tests/test_torch_deform_sampler.py::k6_order_model``: each channel's
+    f32 operations in the kernel's order), in its templated form (``out``)
+    and in its generic one."""
+    import inspect
+
+    import torch
+
+    from mmor_tpu_torch.ops import deformable_sampler as D
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_deform_sampler import k6_order_model
+
+    want = k6_order_model(value, shapes, loc, attn)
+    result = {"order_model_bit_exact": bool(torch.equal(out, want))}
+    # an older kernel library (an A/B call's parent tree) has one form only
+    if "generic" in inspect.signature(D.ms_deform_attn_sampler).parameters:
+        generic = D.ms_deform_attn_sampler(value, shapes, loc, attn, generic=True)
+        result["generic_bit_exact"] = bool(torch.equal(generic, want))
+    torch.cuda.synchronize()
+    check(all(result.values()), f"K6 not bit for bit the order model: {result}")
+    return result
 
 
 def phase_kernels(dev, summary: dict) -> None:
@@ -2945,7 +3002,7 @@ def _build_phase(build) -> None:
     build.library()
     say("1 build", seconds=f"{secs:.2f}", library=os.path.relpath(path, ROOT))
     log = os.path.join(os.path.dirname(path), "nvcc.log")
-    if os.path.exists(log):  # registers and spills of K1's, K2's, K5's, K8's, K9's, K10f's kernels
+    if os.path.exists(log):  # registers and spills of the kernels nvcc_report lists
         for line in nvcc_report(open(log).read()):
             say("1 build", **line)
 
@@ -2958,8 +3015,10 @@ def nvcc_report(log: str) -> list[dict]:
     kernel a head dim), ``decode_attention.cu`` (K4 and K7),
     ``int8_matmul.cu``'s wgmma and stream kernels (K2 at M > 16, both
     branches, K2's W8A8 at M <= 16, K8 at M <= 16), ``int4_matmul.cu``'s
-    wgmma kernels (K3 at M > 16, both branches) and ``reshape_probe.cu``'s
-    product (K10f), one dict a kernel, under the kernel's mangled name. K1's count is its
+    wgmma kernels (K3 at M > 16, both branches), ``reshape_probe.cu``'s
+    product (K10f), ``ms_deform_attn.cu``'s two forms (K6) and
+    ``stream_matmul.cu``'s slab stream (K10b), one dict a kernel, under the
+    kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
     import re
@@ -2979,7 +3038,9 @@ def nvcc_report(log: str) -> list[dict]:
                     or (source.endswith("int8_matmul.cu")
                         and ("wgmma" in name or "s8_stream" in name or "word_stream" in name))
                     or (source.endswith("int4_matmul.cu") and "wgmma" in name)
-                    or (source.endswith("reshape_probe.cu") and "product" in name)):
+                    or (source.endswith("reshape_probe.cu") and "product" in name)
+                    or source.endswith("ms_deform_attn.cu")
+                    or (source.endswith("stream_matmul.cu") and "slab" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
             name, frame = None, ""

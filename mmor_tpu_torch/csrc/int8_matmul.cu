@@ -181,7 +181,7 @@
 // stream_matmul.cu's weight-stream entry (K10b, K10c's bf16 mode): K2's
 // W8A16 branch at up to 16 rows
 extern "C" int mmor_wp_matmul(const void* x, const void* w, const void* scale, void* out,
-                              int m, int k, int n, int bits, int out_bf16, void* stream);
+                              int m, int k, int n, int out_bf16, void* stream);
 
 namespace {
 
@@ -1161,7 +1161,7 @@ cudaError_t launch_w8a16(const T* x, __nv_bfloat16* xb, const uint32_t* w, const
   }
   if (m > 16) return launch_wgmma<false, T>(xs, w, scale, nullptr, out, m, k, n, s);
   return static_cast<cudaError_t>(
-      mmor_wp_matmul(xs, w, scale, out, m, k, n, 8, std::is_same<T, __nv_bfloat16>::value, s));
+      mmor_wp_matmul(xs, w, scale, out, m, k, n, std::is_same<T, __nv_bfloat16>::value, s));
 }
 
 }  // namespace

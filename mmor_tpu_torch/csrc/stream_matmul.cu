@@ -1,9 +1,9 @@
 // K10a: W8A16 on an unpacked int8 weight, K10b: W8A16 on slab-packed int8
 // or int4 words, and K10c's bf16 mode: W8A16 on row-packed int8 words, the
-// kernels of the weight-stream microbenchmarks. The row-word instantiation
-// is also K2's W8A16 branch at up to 16 rows (int8_matmul.cu calls
-// mmor_wp_matmul), which serves decode steps: the lm_head at
-// quant_int8_mxu=False and every projection of the per-op int8 path there.
+// kernels of the weight-stream microbenchmarks. The row-word kernel is also
+// K2's W8A16 branch at up to 16 rows (int8_matmul.cu calls mmor_wp_matmul),
+// which serves decode steps: the lm_head at quant_int8_mxu=False and every
+// projection of the per-op int8 path there.
 //
 // Replaces tools/perf/bench_w8a16.py::w8a16_matmul (_w8a16_kernel, the
 // pl.pallas_call at :75), tools/perf/bench_packed.py::wp_matmul
@@ -11,52 +11,84 @@
 // tools/perf/bench_bitcast.py::w8b_matmul (_kernel, the pl.pallas_call at
 // :95).
 //
-// What bounds it on the H100: device-memory bytes. At the benchmarks' M = 16
-// every weight byte (or half byte) is read once for 16 multiply-adds, far
+// What bounds them on the H100: device-memory bytes. At the benchmarks' M =
+// 16 every weight byte (or half byte) is read once for 16 multiply-adds, far
 // below the tensor cores' rate; the question the benchmarks ask is how close
 // each weight layout comes to the card's bandwidth.
 //
-// Design: bf16 mma.sync.m16n8k16 with f32 accumulation, the TPU kernels'
-// bf16 product. x arrives as bf16 (the wrapper's cast, as on the TPU); each
-// weight value converts exactly to bf16 in registers (by I2F: the byte
-// permutes of int8_matmul.cu's s8_pair_bf16 measured no faster here, where
-// the loads' latency sets the time). A block of eight warps (sixteen,
-// below) owns 32 columns and one 16-row m-tile (grid.y walks the m-tiles);
-// its warps split the weight's word rows, four word rows (one per thread
-// quad lane) a k-step, four k-steps of loads in flight before their
-// products, and their partial sums meet in shared memory. Where the column blocks are too few
-// to fill the card (K2's decode widths: 4096 columns are 128 blocks), a
-// block is sixteen warps, twice the loads in flight an SM (at 8 rows on an
-// H100, chip_smoke.py's phase 2: 11264 x 4096 from 0.032 to 0.026 ms,
-// 4096 x 4096 from 0.0106 to 0.0099; eight k-steps in flight a warp
-// instead, or a cluster of blocks splitting K, were slower). out = acc * scale in f32, cast to x's
-// dtype. The mma does not care which real k its 16 k slots hold as long as A
-// and B agree, so each thread's B registers take the values of one weight
-// word and its A registers the x entries of the same k: every weight word is
-// loaded once, by one thread, and nothing is shuffled. Nor does it care
-// which real columns its 8 n slots are: a thread's four words are those of
-// four neighbouring columns (one per 8-column tile), one 16-byte load. x
-// comes in word order (the wrapper's copy for the slab formats: the TPU
-// wrapper also cuts x into slabs), so a thread's x values of one word are
-// one 8-byte load a row. The word formats (loaded by weight_words.cuh):
+// stream_kernel (K10a, K10c's bf16 mode, K2's W8A16 at decode rows): bf16
+// mma.sync.m16n8k16 with f32 accumulation, the TPU kernels' bf16 product. x
+// arrives as bf16 (the wrapper's cast, as on the TPU); each weight value
+// converts exactly to bf16 in registers (by I2F: the byte permutes of
+// int8_matmul.cu's s8_pair_bf16 measured no faster here, where the loads' latency sets the
+// time). A block of eight warps (sixteen, below) owns 32 columns and one
+// 16-row m-tile (grid.y walks the m-tiles); its warps split the weight's
+// word rows, four word rows (one per thread quad lane) a k-step, four
+// k-steps of loads in flight before their products, and their partial sums
+// meet in shared memory. Where the column blocks are too few to fill the
+// card (K2's decode widths: 4096 columns are 128 blocks), a block is sixteen
+// warps, twice the loads in flight an SM (at 8 rows on an H100,
+// chip_smoke.py's phase 2: 11264 x 4096 from 0.032 to 0.026 ms, 4096 x 4096
+// from 0.0106 to 0.0099; eight k-steps in flight a warp instead, or a
+// cluster of blocks splitting K, were slower). out = acc * scale in f32,
+// cast to x's dtype. The mma does not care which real k its 16 k slots hold
+// as long as A and B agree, so each thread's B registers take the values of
+// one weight word and its A registers the x entries of the same k: every
+// weight word is loaded once, by one thread, and nothing is shuffled. Nor
+// does it care which real columns its 8 n slots are: a thread's four words
+// are those of four neighbouring columns (one per 8-column tile), one
+// 16-byte load. Its word formats (loaded by weight_words.cuh):
 //  - Bytes (K10a): the (K, N) int8 weight; word r of a column is rows
 //    4r..4r+3: a thread loads 4 bytes (its four columns) of each of the four
 //    rows and transposes them;
-//  - Slab8 (K10b w8p): pack4_int8's (K/4, N) int32, word (r, n) holds rows
-//    r + i*K/4 in byte i;
-//  - Slab4 (K10b w4p): pack8_int4's (K/8, N) int32, rows r + i*K/8 in
-//    nibble i (values in [-8, 7], no bias): eight values, two k-steps a word;
-//  - row words (K10c bf16, bench_bitcast's w8b_matmul): pack_int8_rows'
-//    (K/4, N) int32, rows 4r..4r+3 in bytes 0..3 of word r. That is Slab8's
-//    word format with x in its natural order (the k of word r already sit
-//    at x[4r..4r+3]), so Slab8's instantiation runs it and the wrapper
-//    passes x as it is.
+//  - row words (K10c bf16, bench_bitcast's w8b_matmul; K2's pack_int8_rows):
+//    (K/4, N) int32, rows 4r..4r+3 in bytes 0..3 of word r, x in its
+//    natural order.
+//
+// slab_stream_kernel (K10b): pack4_int8's words (w8p: word (r, n) holds rows
+// r + i*K/4 in byte i) or pack8_int4's (w4p: rows r + i*K/8 in nibble i,
+// values in [-8, 7], no bias). Its first form was stream_kernel on these
+// words, 27-49% of the byte bound: every 32-column block read all of x from
+// L2 (46 MB a layer at 16 x 4096 x 11264, as much as w8p's weight), each
+// value went through a shift pair and an I2F (16 a clock an SM: about 11 us
+// a layer, more than w4p's whole 6.9 us bound), and the wrapper copied x
+// into word order before each call. This kernel:
+//  - gives a block 96 columns (3 boxes of 32) of one 16-row m-tile over
+//    all of K: 118 blocks at 11264 columns, one an SM, and x is read 118
+//    times a layer, not 352;
+//  - streams the weight words through a ring of stages (128 word rows of
+//    each box, 128-byte swizzle) that warp 0 keeps full with TMA (cp.async
+//    of 4 bytes where N % 4 != 0), paced by mbarriers, each stage released
+//    through hopper.cuh's release_stage (its ordinary shared-memory reads
+//    ordered before the next TMA write); as many stages as fit (3 at w8p,
+//    2 at w4p, bf16 x at 16 rows); launched with programmatic dependent
+//    launch, its first stages' words go out while the kernel before still
+//    runs (a scan of layers: one layer's ramp under the last one's tail);
+//  - loads with each stage, by TMA from x's natural (M, K) order, the x
+//    values that meet its word rows: for each slab i, columns i*kw + r0 ..
+//    + 127 in the 128-byte swizzle (no wrapper copy where a slab's run is a
+//    multiple of 16 bytes; f32 x rounds to bf16 as it is read);
+//  - takes the product transposed, W^T x^T, on mma.m16n8k16 bf16 (K2's
+//    word stream in bf16): a k-step's slot pairs are one slab at two
+//    neighbouring word rows, so a B register is one 4-byte load of x and an
+//    A register two words' values of one column; the n = 8 slots are x rows
+//    (one n-tile up to 8 rows, two up to 16); lane (g, t4) loads 16 bytes
+//    (4 columns) of word rows 2t4 and 2t4 + 1 of each 8-row group, whose
+//    swizzled places fall in distinct banks;
+//  - converts without I2F: int8 pairs by byte permutes under the f32
+//    exponent of 2^23 (int8_matmul.cu's s8_pair_bf16 rule, exact), int4 pairs by one LOP3
+//    that masks two nibbles, flips their bias (s becomes s + 8) and ORs
+//    them into the bf16 128.0, and one bf16 pair subtract of 136 (exact);
+//  - folds its 12 warps' f32 tiles in shared memory: out = sum * scale[col]
+//    in f32, cast to x's dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 #include "weight_words.cuh"
 
 namespace {
@@ -73,8 +105,7 @@ template <WLayout L, int kBits> struct Format {
   }
 };
 using Bytes = Format<WLayout::kBytes, 8>;  // K10a
-using Slab8 = Format<WLayout::kWords, 8>;  // K10b w8p; K10c bf16 (row words)
-using Slab4 = Format<WLayout::kWords, 4>;  // K10b w4p
+using Words = Format<WLayout::kWords, 8>;  // K10c bf16, K2's W8A16 (row words)
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
@@ -84,9 +115,9 @@ constexpr int kUnroll = 4;  // k-steps a warp loads before its products
 constexpr int kFill = 2 * 132;  // blocks of 8 warps that fill the card twice over
 
 // The A registers of k-step (r, j): rows g and g + 8 of the m-tile at the
-// k of values 4j..4j+3 of word row r (0 for rows past M). x is in word
-// order, the values of word row r at x[kVals*r .. kVals*r + kVals - 1], so
-// they are one 8-byte load a row.
+// k of values 4j..4j+3 of word row r (0 for rows past M). The values of word
+// row r sit at x[kVals*r .. kVals*r + kVals - 1], so they are one 8-byte
+// load a row.
 template <int kVals>
 __device__ __forceinline__ void load_a(uint32_t a[4], const uint16_t* x_lo,
                                        const uint16_t* x_hi, bool lo, bool hi, int r,
@@ -196,6 +227,337 @@ int launch(const void* x, const void* w, const void* scale, void* out, int m, in
                         : launch_warps<Fm, 8>(x, w, scale, out, m, k, n, out_bf16, s);
 }
 
+// ---------------------------------------------- K10b: the slab-word stream
+namespace slab {
+constexpr int kBoxCols = wbox::kCols;             // columns a TMA box: 128 bytes a word row
+constexpr int kRows = 128;                        // word rows of each box a stage
+constexpr int kBoxBytes = kRows * kBoxCols * 4;   // 16 KB
+constexpr int kBoxes = 3;                         // boxes a block: 96 columns
+constexpr int kWarpsPerBox = 4;                   // consumer warps a box, 32 word rows apiece
+constexpr int kConsumers = kWarpsPerBox * kBoxes;
+constexpr int kThreads = 32 * (1 + kConsumers);   // warp 0 loads
+constexpr int kWBytes = kBoxes * kBoxBytes;       // a stage's words
+constexpr int kSmemMax = 227 * 1024;              // a block's shared memory, at most
+constexpr int kMaxStages = 8;
+
+// A stage's x: for each slab i, x's columns i * x_slab + r0 .. + kRows - 1
+// (the values that meet the stage's word rows r0 ..) of the m-tile's 8 kNT
+// rows, as TMA boxes of 128 bytes a row in the 128-byte swizzle (boxes of
+// 64 bf16 or 32 f32 columns)
+template <int kBits, int kNT, typename XT>
+struct StageX {
+  static constexpr int kParts = 32 / kBits;
+  static constexpr int kBoxCols = 128 / (int)sizeof(XT);   // x columns a box
+  static constexpr int kBoxesASlab = kRows / kBoxCols;
+  static constexpr int kBoxBytes = 8 * kNT * 128;
+  static constexpr int kBytes = kParts * kBoxesASlab * kBoxBytes;
+  static constexpr int kStageBytes = kWBytes + kBytes;       // a multiple of 1024
+  static_assert(1024 + 2 * kStageBytes + 16 * kMaxStages <= kSmemMax, "a ring of two stages");
+};
+
+// x's slab i at the stage's word rows (r, r + 1) of x row g + 8 nt as a
+// bf16 pair (f32 x rounded to nearest even): column r of the slab's run
+// sits in box r / kBoxCols at its 16-byte chunk XOR-ed by the row (g: rows
+// g and g + 8 alike); r is even, so a pair shares a chunk, and the chunks
+// of a warp's 8 rows fall in distinct banks (bf16; f32: two lanes a bank)
+template <int kBits, int kNT, typename XT>
+__device__ __forceinline__ uint32_t x_pair(const uint8_t* xs, int i, int nt, int g, int r) {
+  using SX = StageX<kBits, kNT, XT>;
+  constexpr int kEl = (int)sizeof(XT), kPerChunk = 16 / kEl;
+  const int c = r % SX::kBoxCols;
+  const uint8_t* p = xs + (i * SX::kBoxesASlab + r / SX::kBoxCols) * SX::kBoxBytes +
+                     (g + 8 * nt) * 128 + (((c / kPerChunk) ^ g) << 4) + (c % kPerChunk) * kEl;
+  if constexpr (kEl == 2) return *reinterpret_cast<const uint32_t*>(p);
+  const float2 f = *reinterpret_cast<const float2*>(p);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// byte b of two words wr (low half) and wr1 (high half), each a signed
+// int8 made u = q + 128 by the bias flip (wx = w ^ 0x80808080), as a bf16
+// pair: the byte under the f32 exponent of 2^23 is 2^23 + u, and 2^23 + 128
+// less is q exactly; its f32's upper half is q's bf16 (int8_matmul.cu's s8_pair_bf16)
+__device__ __forceinline__ uint32_t byte_pair_bf16(uint32_t wr, uint32_t wr1, int b) {
+  const float lo = __uint_as_float(__byte_perm(wr, 0x4B000000u, 0x7650 + b)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(wr1, 0x4B000000u, 0x7650 + b)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// nibble j of each half of t (two words' bytes side by side) as a bf16
+// pair: the nibble's bias flipped (bit 3: s becomes u = s + 8) and OR-ed
+// into the bf16 128.0 in one LOP3, 128 + u, and 136 less is s exactly
+__device__ __forceinline__ uint32_t nibble_pair_bf16(uint32_t t, int j) {
+  uint32_t v = ((t >> (4 * j)) & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 q =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&q);
+}
+
+// The products of word rows r, r + 1 (words v, v1: columns 4g .. 4g + 3;
+// m-tile 0 takes the first two as its fragment rows g and g + 8, m-tile 1
+// the last two) with x rows g, g + 8 of each n-tile (b: their bf16 pairs of
+// each slab at rows r, r + 1). A k-step's slots 2t4, 2t4 + 1 hold slab i at
+// rows (r, r + 1), slots 2t4 + 8, 2t4 + 9 slab i + 1: two k-steps at int8,
+// four at int4.
+template <int kBits, int kNT>
+__device__ __forceinline__ void word_rows(float (&acc)[2][kNT][4], uint4 v, uint4 v1,
+                                          const uint32_t (&b)[kNT][32 / kBits]) {
+  const uint32_t w0[4] = {v.x, v.y, v.z, v.w}, w1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int c0 = 2 * mt, c1 = 2 * mt + 1;
+    if constexpr (kBits == 8) {
+      const uint32_t f0 = 0x80808080u;
+      const uint32_t a0 = w0[c0] ^ f0, a1 = w1[c0] ^ f0, b0 = w0[c1] ^ f0, b1 = w1[c1] ^ f0;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {  // slabs (2ks, 2ks + 1)
+        const uint32_t a[4] = {byte_pair_bf16(a0, a1, 2 * ks), byte_pair_bf16(b0, b1, 2 * ks),
+                               byte_pair_bf16(a0, a1, 2 * ks + 1),
+                               byte_pair_bf16(b0, b1, 2 * ks + 1)};
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const uint32_t bb[2] = {b[nt][2 * ks], b[nt][2 * ks + 1]};
+          mma_bf16(acc[mt][nt], a, bb);
+        }
+      }
+    } else {
+      const uint32_t a0 = w0[c0], a1 = w1[c0], b0 = w0[c1], b1 = w1[c1];
+      // nibbles 0-3 (the low half-words side by side), then 4-7 (the high ones)
+      const uint32_t t[2][2] = {{__byte_perm(a0, a1, 0x5410), __byte_perm(b0, b1, 0x5410)},
+                                {__byte_perm(a0, a1, 0x7632), __byte_perm(b0, b1, 0x7632)}};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // slabs (2ks, 2ks + 1)
+        const int h = ks / 2, j = 2 * (ks % 2);
+        const uint32_t a[4] = {nibble_pair_bf16(t[h][0], j), nibble_pair_bf16(t[h][1], j),
+                               nibble_pair_bf16(t[h][0], j + 1),
+                               nibble_pair_bf16(t[h][1], j + 1)};
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const uint32_t bb[2] = {b[nt][2 * ks], b[nt][2 * ks + 1]};
+          mma_bf16(acc[mt][nt], a, bb);
+        }
+      }
+    }
+  }
+}
+
+// Block (strip, m-tile): weight columns 96 strip.. over all of K, x rows 16
+// m-tile... w_map is the (N, K/parts) int32 word map in boxes of 32 columns
+// x kRows word rows, 128-byte swizzle, when N % 4 == 0 (w_tma); otherwise
+// warp 0 copies the words by cp.async into the same layout. x_map is x's
+// (M, parts * x_slab) map in StageX's boxes, slab i's values at columns
+// i * x_slab ... out = sum * scale in XT, x's dtype.
+template <int kBits, int kNT, typename XT>
+__global__ void __launch_bounds__(kThreads, 1)
+slab_stream_kernel(const __grid_constant__ CUtensorMap w_map,
+                   const __grid_constant__ CUtensorMap x_map, int w_tma,
+                   const uint32_t* __restrict__ w, const float* __restrict__ scale,
+                   XT* __restrict__ out, int m, int k, int n, int x_slab, int stages) {
+  using SX = StageX<kBits, kNT, XT>;
+  constexpr int kCols = kBoxes * kBoxCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * SX::kStageBytes);
+  uint64_t* empty = full + stages;
+  const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * 16;
+  const int kw = k / SX::kParts, tiles = (kw + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // the next kernel may start its own first stages while this one runs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // the TMA bytes' arrival, and each lane's where warp 0 copies the words
+      mbar_init(&full[s], w_tma ? 1 : 1 + 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc[2][kNT][4] = {};  // 16-column m-tile, 8-row n-tile
+  if (warp == 0) {
+    // ------------------------------------------------------------ producer
+    // tile i into stage i % stages once the consumers have released it: its
+    // words (by TMA, or cp.async where N % 4 != 0) and x's values at its
+    // word rows. The first stages' words go out at once, while the kernel
+    // before may still run (the words and scales are not written by it);
+    // x only after griddepcontrol.wait, when that kernel's writes are visible
+    auto load_w = [&](int i) {
+      const int s = i % stages;
+      uint8_t* st = smem + s * SX::kStageBytes;
+      const int r0 = i * kRows;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], (w_tma ? kWBytes : 0) + SX::kBytes);
+        if (w_tma) {
+#pragma unroll
+          for (int b = 0; b < kBoxes; ++b)
+            tma_load_2d(st + b * kBoxBytes, &w_map, &full[s], n0 + b * kBoxCols, r0);
+        }
+      }
+      if (!w_tma) {  // lane c copies column c of each box, a word row at a time
+#pragma unroll
+        for (int b = 0; b < kBoxes; ++b) {
+          const int col = n0 + b * kBoxCols + lane;
+          uint32_t* dst = reinterpret_cast<uint32_t*>(st + b * kBoxBytes);
+          const uint32_t* src = w + (size_t)r0 * n + col;
+          for (int r = 0; r < kRows; ++r, src += n) {
+            const bool in = r0 + r < kw && col < n;
+            cp_async4(dst + wbox::swz(r, lane), in ? src : w, in ? 4 : 0);
+          }
+        }
+        cp_async_arrive(&full[s]);
+      }
+    };
+    auto load_x = [&](int i) {
+      if (lane != 0) return;
+      const int s = i % stages;
+      uint8_t* xst = smem + s * SX::kStageBytes + kWBytes;
+#pragma unroll
+      for (int b = 0; b < SX::kParts * SX::kBoxesASlab; ++b)
+        tma_load_2d(xst + b * SX::kBoxBytes, &x_map, &full[s],
+                    b / SX::kBoxesASlab * x_slab + i * kRows + b % SX::kBoxesASlab * SX::kBoxCols,
+                    m0);
+    };
+    const int pre = min(stages, tiles);
+    for (int i = 0; i < pre; ++i) load_w(i);
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int i = 0; i < pre; ++i) load_x(i);
+    for (int i = pre; i < tiles; ++i) {
+      if (lane == 0) mbar_wait(&empty[i % stages], ((i / stages) - 1) & 1);
+      __syncwarp();
+      load_w(i);
+      load_x(i);
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    // Consumer c takes box c % kBoxes, word rows 32 (c / kBoxes) .. of each
+    // stage, 8 at a time: lane (g, t4) loads the 16-byte chunk g (columns
+    // 4g .. 4g + 3) of word rows 2t4 and 2t4 + 1 (whose swizzled places,
+    // XOR-ed by the rows, are 8 distinct chunks in each quarter warp) and
+    // the x of those rows.
+    const int c = warp - 1, box = c % kBoxes, part = c / kBoxes;
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const uint8_t* st = smem + s * SX::kStageBytes;
+      const uint32_t* wst = reinterpret_cast<const uint32_t*>(st + box * kBoxBytes);
+#pragma unroll
+      for (int j = 0; j < kRows / kWarpsPerBox / 8; ++j) {
+        const int r = kRows / kWarpsPerBox * part + 8 * j + 2 * t4;  // r % 8 == 2 t4
+        const uint4 v = *reinterpret_cast<const uint4*>(wst + r * kBoxCols + ((g ^ (2 * t4)) << 2));
+        const uint4 v1 = *reinterpret_cast<const uint4*>(wst + (r + 1) * kBoxCols +
+                                                         ((g ^ (2 * t4 + 1)) << 2));
+        uint32_t b[kNT][SX::kParts];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int si = 0; si < SX::kParts; ++si)
+            b[nt][si] = x_pair<kBits, kNT, XT>(st + kWBytes, si, nt, g, r);
+        word_rows<kBits, kNT>(acc, v, v1, b);
+      }
+      release_stage(&empty[s], lane);  // the stage's words and x are in registers
+    }
+  }
+
+  // the consumers' f32 tiles meet in shared memory (the ring is idle: every
+  // tile has been consumed) and are summed in warp order; out is written
+  // only after the kernel before has finished (griddepcontrol.wait)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();
+  float* fold = reinterpret_cast<float*>(smem);  // [consumer][row][column of its box]
+  if (warp > 0) {
+    const int c = warp - 1;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // fragment row g + 8 (e >> 1), column 2t4 + (e & 1)
+          fold[(c * 16 + nt * 8 + 2 * t4 + (e & 1)) * kBoxCols + 4 * g + 2 * mt + (e >> 1)] =
+              acc[mt][nt][e];
+  }
+  __syncthreads();
+  const int out_rows = min(16, m - m0);
+  for (int o = threadIdx.x; o < out_rows * kCols; o += kThreads) {
+    const int row = o / kCols, cl = o % kCols, b = cl / kBoxCols, col = n0 + cl;
+    if (col >= n) continue;
+    const float* f = fold + row * kBoxCols + cl % kBoxCols;
+    float sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < kWarpsPerBox; ++h) sum += f[(b + kBoxes * h) * 16 * kBoxCols];
+    store(out + (size_t)(m0 + row) * n + col, sum * scale[col]);
+  }
+}
+
+template <int kBits, int kNT, typename XT>
+int launch(const void* x, const void* w, const void* scale, void* out, int m, int k, int n,
+           int x_slab, cudaStream_t s) {
+  using SX = StageX<kBits, kNT, XT>;
+  const int kw = k / SX::kParts;
+  CUtensorMap w_map, x_map;
+  // TMA rows must be 16-byte strided: the weight's when N % 4 == 0
+  const int w_tma = (n % 4) == 0 && kw > 0;
+  if (w_tma) {
+    const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)kw};
+    const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+    const cuuint32_t box[2] = {kBoxCols, kRows};
+    if (!encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    memset(&w_map, 0, sizeof(w_map));  // unused
+  }
+  {  // TMA box starts must be 16-byte aligned: x_slab * sizeof(XT) % 16 == 0
+    const int cols = max(SX::kParts * x_slab, 16 / (int)sizeof(XT));
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)m};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(XT)};
+    const cuuint32_t box[2] = {SX::kBoxCols, 8 * kNT};
+    if (!encode_map(&x_map,
+                    sizeof(XT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                    2, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = slab_stream_kernel<kBits, kNT, XT>;
+  static bool smem_set = false;  // per instantiation
+  if (!smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  // as many stages as fit, up to kMaxStages
+  const int stages = min(kMaxStages, (kSmemMax - 1024 - 16 * kMaxStages) / SX::kStageBytes);
+  const int smem = 1024 + stages * SX::kStageBytes + 16 * stages;
+  const dim3 grid((n + kBoxes * kBoxCols - 1) / (kBoxes * kBoxCols), (m + 15) / 16);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute pdl;  // programmatic dependent launch (see the producer)
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, w_map, x_map, w_tma,
+                                 static_cast<const uint32_t*>(w),
+                                 static_cast<const float*>(scale), static_cast<XT*>(out), m, k,
+                                 n, x_slab, stages);
+}
+
+template <int kBits, typename XT>
+int dispatch(const void* x, const void* w, const void* scale, void* out, int m, int k, int n,
+             int x_slab, cudaStream_t s) {
+  if (x_slab < k / (32 / kBits) || x_slab * (int)sizeof(XT) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return m <= 8 ? launch<kBits, 1, XT>(x, w, scale, out, m, k, n, x_slab, s)
+                : launch<kBits, 2, XT>(x, w, scale, out, m, k, n, x_slab, s);
+}
+}  // namespace slab
+
 }  // namespace
 
 // K10a: x (M, K) bf16; w (K, N) int8 row-major; scale (N,) f32; out (M, N)
@@ -205,14 +567,31 @@ extern "C" int mmor_w8a16_bytes(const void* x, const void* w, const void* scale,
   return launch<Bytes>(x, w, scale, out, m, k, n, out_bf16, stream);
 }
 
-// K10b: x (M, K) bf16 in word order (x[m, parts*r + i] holds column
-// r + i*K/parts of the row); w (K/parts, N) int32 slab-packed (bits 8: parts
-// 4, pack4_int8; bits 4: parts 8, pack8_int4); scale (N,) f32; out as above.
-// K must be a multiple of 16 (bits 8) or 32 (bits 4). K10c's bf16 mode is
-// bits 8 on pack_int8_rows' words with x in its natural order.
+// K10c's bf16 mode and K2's W8A16 branch at up to 16 rows: x (M, K) bf16;
+// w (K/4, N) int32 row words (pack_int8_rows: rows 4r..4r+3 in bytes 0..3
+// of word r); scale (N,) f32; out as above. K must be a multiple of 16.
 extern "C" int mmor_wp_matmul(const void* x, const void* w, const void* scale, void* out,
-                              int m, int k, int n, int bits, int out_bf16, void* stream) {
-  if (bits == 8) return launch<Slab8>(x, w, scale, out, m, k, n, out_bf16, stream);
-  if (bits == 4) return launch<Slab4>(x, w, scale, out, m, k, n, out_bf16, stream);
-  return (int)cudaErrorInvalidValue;
+                              int m, int k, int n, int out_bf16, void* stream) {
+  return launch<Words>(x, w, scale, out, m, k, n, out_bf16, stream);
+}
+
+// K10b: x (M, parts * x_slab) bf16 (x_bf16 = 1) or f32, slab i's values
+// (x's columns i*K/parts .. in its natural (M, K) order) at columns i *
+// x_slab ..: x itself where x_slab = K/parts is a multiple of 8 (bf16) or 4
+// (f32), else its slabs padded to such an x_slab (TMA's boxes start 16-byte
+// aligned); w (K/parts, N) int32 slab words (bits 8: parts 4, pack4_int8;
+// bits 4: parts 8, pack8_int4); scale (N,) f32; out (M, N) in x's dtype.
+// K must be a multiple of 4 * parts (16 at int8, 32 at int4).
+extern "C" int mmor_slab_matmul(const void* x, const void* w, const void* scale, void* out,
+                                int m, int k, int n, int x_slab, int bits, int x_bf16,
+                                void* stream) {
+  const int parts = bits == 8 ? 4 : bits == 4 ? 8 : 0;
+  if (parts == 0 || m < 1 || n < 1 || k < 0 || k % (4 * parts) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bits == 8)
+    return x_bf16 ? slab::dispatch<8, __nv_bfloat16>(x, w, scale, out, m, k, n, x_slab, s)
+                  : slab::dispatch<8, float>(x, w, scale, out, m, k, n, x_slab, s);
+  return x_bf16 ? slab::dispatch<4, __nv_bfloat16>(x, w, scale, out, m, k, n, x_slab, s)
+                : slab::dispatch<4, float>(x, w, scale, out, m, k, n, x_slab, s);
 }

@@ -43,9 +43,10 @@ SIGNATURES = {
     "mmor_int4_matmul": (_P,) * 6 + (_I,) * 6 + (_P,),
     "mmor_mega_decode": (_P,) * 38 + (_I,) * 11 + (_F, _F, _P),
     "mmor_mega_project": (_P,) * 6 + (_I,) * 15 + (_P,),
-    "mmor_ms_deform_attn": (_P,) * 5 + (_I,) * 8 + (_P,),
+    "mmor_ms_deform_attn": (_P,) * 5 + (_I,) * 9 + (_P,),
     "mmor_w8a16_bytes": (_P,) * 4 + (_I,) * 4 + (_P,),
-    "mmor_wp_matmul": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "mmor_wp_matmul": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "mmor_slab_matmul": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mmor_int8_matmul_w8b": (_P,) * 6 + (_I,) * 4 + (_P,),
     "mmor_fused_o_mlp": (_P,) * 15 + (_I,) * 5 + (_F, _P),
     "mmor_window_gather": (_P,) * 3 + (_I,) * 4 + (_P,),

@@ -3,9 +3,14 @@
 Counterpart of ``mmor_tpu/ops/deformable_sampler.py::ms_deform_attn_pallas``.
 The TPU kernel tiles the queries, contracts one-hot matrices over value
 windows on the matrix unit and sends the samples that fall outside their
-window through a gather residual; on the card the kernel is the direct
-gather of the original MSDeformAttn op (``csrc/ms_deform_attn.cu``), which
-computes every sample exactly and needs no residual.
+window through a gather residual; on the card the kernel is a direct gather
+(``csrc/ms_deform_attn.cu``) that computes every sample exactly and needs no
+residual: a lane a (query, head, 16-byte chunk of channels), the points'
+coefficients computed once a (head, point) and shared across the head's
+lanes, a level's corner loads issued together. Its templated form takes the
+serving counts (3 levels, 4 points); a generic form takes every other shape,
+in the same per-channel order, so both give the same bits
+(``tests/test_torch_deform_sampler.py::k6_order_model``).
 
 The wrapper takes the plain version (``ops/deformable_attention.py``) for
 tensors on the CPU and launches the CUDA kernel for tensors on a CUDA
@@ -31,10 +36,14 @@ def ms_deform_attn_sampler(
     spatial_shapes: tuple[tuple[int, int], ...],
     sampling_locations: torch.Tensor,  # (N, Lq, M, L, P, 2) f32
     attention_weights: torch.Tensor,  # (N, Lq, M, L, P) in the value's dtype
+    *,
+    generic: bool = False,
 ) -> torch.Tensor:
     """K6: ``ms_deform_attn`` -> (N, Lq, M*D) in the value's dtype.
 
-    CPU: the plain version. CUDA: one launch for all N frames. The kernel
+    CPU: the plain version. CUDA: one launch for all N frames; ``generic``
+    takes the kernel's generic form where its templated one applies (for
+    tests and timing: the two give the same bits). The kernel
     reads contiguous operands: a non-contiguous input is made contiguous
     here (a copy), as the model's own reshapes already give contiguous ones.
     The gradient comes with the training slice: the kernel path raises on
@@ -75,7 +84,7 @@ def ms_deform_attn_sampler(
     err = _build.library().mmor_ms_deform_attn(
         _build.ptr(value), _build.ptr(loc), _build.ptr(attn), _build.ptr(out),
         ctypes.cast(shapes, ctypes.c_void_p), levels, points, n, s_len, lq, m, d,
-        int(value.dtype == torch.bfloat16), _build.stream())
+        int(value.dtype == torch.bfloat16), int(generic), _build.stream())
     _build.check(err, "ms_deform_attn_sampler")
     ms_deform_attn_sampler.launches += 1
     return out

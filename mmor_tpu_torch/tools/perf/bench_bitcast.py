@@ -8,9 +8,8 @@ int8 ``mma.sync`` one 32-bit register holds four consecutive k of one
 column, and for the bf16 one the same word converts in registers to two
 bf16x2 registers. So the two modes run kernels the port already has:
 
-- ``w8b_bf16``: ``stream_matmul.cu``'s bf16 kernel (K10b's w8p
-  instantiation), since row words are slab words with x in its natural
-  order; x rounded to bf16, f32 sums, times the scale;
+- ``w8b_bf16``: ``stream_matmul.cu``'s row-word kernel (K2's W8A16 at
+  decode rows); x rounded to bf16, f32 sums, times the scale;
 - ``w8b_mxu8``: ``int8_matmul.cu``'s W8A8 kernels (K2's, on its own packed
   words) with K8's activation rule, x / (amax / 127) per row in f32;
   int32 sums, times the scale, then the row scale.
@@ -101,10 +100,10 @@ def w8b_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, *,
         err = lib.mmor_int8_matmul_w8b(
             _build.ptr(xc), _build.ptr(xq), _build.ptr(rs), _build.ptr(w_packed),
             _build.ptr(scale), _build.ptr(out), m, k, n, is_bf16, _build.stream())
-    else:  # row words are slab words with x in natural order: K10b's w8p kernel
+    else:  # the row-word stream kernel, K2's W8A16 at decode rows
         xb = _build.aligned(x.to(torch.bfloat16))
         err = lib.mmor_wp_matmul(_build.ptr(xb), _build.ptr(w_packed), _build.ptr(scale),
-                                 _build.ptr(out), m, k, n, 8, is_bf16, _build.stream())
+                                 _build.ptr(out), m, k, n, is_bf16, _build.stream())
     _build.check(err, f"w8b_matmul ({mode})")
     if mode == "mxu8":
         w8b_matmul.mxu8_launches += 1

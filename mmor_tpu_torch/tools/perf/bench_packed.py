@@ -87,9 +87,13 @@ def wp_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, *,
     scale (N,) f32) -> (M, N) in x.dtype; ``parts=4, bits=8`` (w8p) or
     ``parts=8, bits=4`` (w4p).
 
-    CPU: ``wp_matmul_plain``. CUDA: ``csrc/stream_matmul.cu`` (K a multiple
-    of 16 at int8, 32 at int4). Counts its launches in
-    ``wp_matmul.launches``."""
+    CPU: ``wp_matmul_plain``. CUDA: ``csrc/stream_matmul.cu``'s slab
+    stream (K a multiple of 16 at int8, 32 at int4), which reads x in its
+    own order (a copy only where a slab's run is not a multiple of 16
+    bytes) and rounds f32 x to bf16 itself. It is launched with
+    programmatic dependent launch and loads its first weight words before
+    the kernel ahead of it has finished: ``w_packed`` and ``scale`` must not
+    be that kernel's output. Counts its launches in ``wp_matmul.launches``."""
     if (parts, bits) not in ((4, 8), (8, 4)):
         raise ValueError(f"wp_matmul: parts={parts}, bits={bits}")
     m, k = x.shape
@@ -107,12 +111,17 @@ def wp_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, *,
         raise TypeError("wp_matmul: w_packed must be int32, scale f32")
     if k % (4 * parts):
         raise ValueError(f"wp_matmul: the kernel needs K % {4 * parts} == 0, K={k}")
-    # x in word order, the k of word row r adjacent: the slabs interleaved
-    xb = x.to(torch.bfloat16).view(m, parts, kp).transpose(1, 2).contiguous().view(m, k)
-    w_packed, scale = _build.aligned(w_packed), _build.aligned(scale)
+    # the kernel's TMA boxes of x start 16-byte aligned at each slab: where
+    # K/parts values of a slab are not a multiple of 16 bytes (K % 32 at
+    # int8, % 64 at int4, in bf16), the slabs are padded with zeros
+    align = 16 // x.element_size()
+    x_slab = -(-kp // align) * align
+    if x_slab != kp:
+        x = torch.nn.functional.pad(x.reshape(m, parts, kp), (0, x_slab - kp)).reshape(m, -1)
+    x, w_packed, scale = _build.aligned(x), _build.aligned(w_packed), _build.aligned(scale)
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    err = _build.library().mmor_wp_matmul(
-        _build.ptr(xb), _build.ptr(w_packed), _build.ptr(scale), _build.ptr(out), m, k, n,
+    err = _build.library().mmor_slab_matmul(
+        _build.ptr(x), _build.ptr(w_packed), _build.ptr(scale), _build.ptr(out), m, k, n, x_slab,
         bits, int(x.dtype == torch.bfloat16), _build.stream())
     _build.check(err, "wp_matmul")
     wp_matmul.launches += 1

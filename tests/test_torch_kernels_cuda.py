@@ -28,11 +28,18 @@ f32 x, and K % 64 != 0 refused; K8's stream
 kernel at one row and at 16, its weight by TMA, by cp.async (N % 16 != 0)
 and byte by byte (N % 4 != 0), one k tile and a ragged last one, and its
 tiled kernel above 16 rows, K10a and K10b's ragged N and M above
-one 16-row tile; K9 at one row, at the 7B tail, above one 16-row tile and
-above 64 rows, with an f32 residual, and its refusals; K10c's two modes at
-ragged shapes; K10d's windows that reach outside the map; K10e's x-read at
-both x layouts and widths (two row groups, half a row group, a bf16 tile
-past shared memory refused), tiny, nibble and row kernels (both modes, one
+one 16-row tile; K10b's slab stream in both formats with bf16 and f32 x at
+M 1, 5, 16 and 40, N 11264, N off its 96-column blocks and N % 4 != 0, the
+smallest K and K 4096, long K (the slabs padded where a slab's run is not
+a multiple of 16 bytes), 32 calls back to back, and a K it refuses; K6's
+two forms bit for bit against the order model of each channel's f32
+operations (``test_torch_deform_sampler.py``) at the serving shape (Lq cut
+to 2,000) and at every edge of its plain-version test; K9 at one row, at
+the 7B tail, above one 16-row tile and above 64 rows, with an f32
+residual, and its refusals; K10c's two modes at ragged shapes; K10d's
+windows that reach outside the map; K10e's x-read at both x layouts
+and widths (two row groups, half a row group, a bf16 tile past shared
+memory refused), tiny, nibble and row kernels (both modes, one
 head, one 128-column block), K10f's copies and products at ragged shapes
 (K that the cluster's 16 ranks do not divide, ranks with no k).
 Every test needs a CUDA device and skips without one (the kernels have no CPU mode); run them on the card with
@@ -55,7 +62,8 @@ bf16 copies of f32 scales must miss it); K5 x_out rel_l2 <= 2e-3 and its new K/V
 RMSNorm and softmax can move an int8 activation bin by one); K6 rel_l2
 <= 1e-3 in bf16 (both versions round the same f32 sum once; the sums' order
 differs) and max abs <= 1e-5 in f32, exact where a sample sits on a pixel
-centre with weight 1 or wholly off the map; K9 rel_l2 <= 1e-3 (the same
+centre with weight 1 or wholly off the map, and bit for bit to its order
+model; K9 rel_l2 <= 1e-3 (the same
 bf16 operands and f32 products summed in another order; h and m round one
 bf16 step apart at near-ties) and bit-identical from call to call; K10c
 mxu8 bit-exact (K2's kernels, K8's rule), bf16 as K10b; K10d bit-exact;
@@ -83,6 +91,7 @@ from mmor_tpu_torch.tools.perf import bench_megakernel_probe as MP
 from mmor_tpu_torch.tools.perf import bench_packed as P
 from mmor_tpu_torch.tools.perf import bench_w8a16 as W
 from mmor_tpu_torch.tools.perf import probe_mosaic_reshape as RP
+from test_torch_deform_sampler import k6_order_model
 from torch_threads import share_cores
 
 share_cores()  # parallel test workers oversubscribe the cores
@@ -541,6 +550,100 @@ def test_stream_matmul_kernels(dev, kernel, m, k, n, dtype):
     assert rel_l2(out, ref) <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
 
 
+def _slab_operands(g, dev, fmt, k, n):
+    """Slab-packed words of N(0, 0.02) weights: w8p with per-column int8
+    scales, w4p with int4 values and amax / 7 scales."""
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    if fmt == "w8p":
+        w_q, scale = Q.quantize_weights(w)
+        return P.pack4_int8(w_q), scale, dict(parts=4, bits=8)
+    w_q4, s4 = P.quantize_int4_channels(w[None])
+    return P.pack8_int4(w_q4[0]), s4[0], dict(parts=8, bits=4)
+
+
+SLAB_K_MIN = {"w8p": 16, "w4p": 32}  # 4 word rows, the kernel's smallest K
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt", ["w8p", "w4p"])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 4096, 11264),    # one row at the benches' width: one n-tile
+    (5, 4096, 4100),     # N off the 256-column strips, a ragged box by TMA
+    (16, 4096, 11264),   # the benches' shape: two n-tiles, x's rows held whole
+    (40, 4096, 1030),    # three 16-row m-tiles; N % 4 != 0: the words by cp.async
+    (16, None, 70),      # the smallest K, N % 4 != 0
+    (5, None, 11264),    # the smallest K at the benches' width: one tile of words
+])
+def test_slab_matmul_kernel(dev, fmt, m, k, n, dtype):
+    """K10b's slab stream against its plain version: rel_l2 <= 1e-3 for bf16
+    x (f32 sums in another order, one bf16 rounding), 1e-5 for f32 x (both
+    round x to bf16 first)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    k = SLAB_K_MIN[fmt] if k is None else k
+    x = randn(g, m, k, dev=dev, dtype=dtype)
+    w_p, scale, kw = _slab_operands(g, dev, fmt, k, n)
+    before = P.wp_matmul.launches
+    out = P.wp_matmul(x, w_p, scale, **kw)
+    ref = P.wp_matmul_plain(x, w_p, scale, **kw)
+    torch.cuda.synchronize()
+    assert P.wp_matmul.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert rel_l2(out, ref) <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("fmt,m,k,n", [
+    ("w8p", 16, 6144, 4100),  # 24 stages of word rows, more than the ring holds
+    ("w4p", 16, 6144, 4100),  # 12
+    ("w8p", 5, 12272, 1030),  # K/4 % 8 != 0: bf16 slabs padded for TMA; N % 4 != 0
+    ("w4p", 5, 12256, 1030),  # K/8 % 8 != 0: the same
+])
+def test_slab_matmul_kernel_long_k(dev, fmt, m, k, n):
+    """Long K: the ring wraps many times; where a slab's run of bf16 x is
+    not a multiple of 16 bytes, the wrapper pads x's slabs, since the
+    kernel's TMA boxes of x start 16-byte aligned."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = randn(g, m, k, dev=dev)
+    w_p, scale, kw = _slab_operands(g, dev, fmt, k, n)
+    out = P.wp_matmul(x, w_p, scale, **kw)
+    ref = P.wp_matmul_plain(x, w_p, scale, **kw)
+    torch.cuda.synchronize()
+    assert rel_l2(out, ref) <= 1e-3
+
+
+@pytest.mark.parametrize("fmt", ["w8p", "w4p"])
+def test_slab_matmul_back_to_back(dev, fmt):
+    """32 calls queued back to back at the benches' width, each on other x
+    and output buffers the caching allocator hands back, every result
+    right: the TMA ring's stages are released only after their reads."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    k, n, calls = 4096, 11264, 32
+    xs = randn(g, calls, 16, k, dev=dev)
+    w_p, scale, kw = _slab_operands(g, dev, fmt, k, n)
+    torch.cuda.synchronize()
+    outs = [P.wp_matmul(x, w_p, scale, **kw) for x in xs]
+    torch.cuda.synchronize()
+    errs = [rel_l2(out, P.wp_matmul_plain(x, w_p, scale, **kw)) for x, out in zip(xs, outs)]
+    assert max(errs) <= 1e-3, errs
+
+
+def test_slab_matmul_refuses_k_off_its_word_rows(dev):
+    """K must be a multiple of 16 at int8 and 32 at int4 (whole groups of 4
+    word rows): the wrapper raises, and so does the C entry on its own, as
+    it does for another bit width, and for x slabs shorter than K/parts or
+    not a multiple of 16 bytes."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = randn(g, 4, 48, dev=dev)
+    w_p, scale, kw = _slab_operands(g, dev, "w4p", 64, 40)
+    with pytest.raises(ValueError):
+        P.wp_matmul(x, torch.zeros(6, 40, dtype=torch.int32, device=dev), scale, **kw)
+    out = torch.empty(4, 40, dtype=torch.bfloat16, device=dev)
+    lib, p = _build.library(), _build.ptr
+    for k, x_slab, bits in ((48, 8, 4), (24, 8, 8), (64, 16, 2), (64, 4, 4), (64, 12, 4)):
+        err = lib.mmor_slab_matmul(p(x), p(w_p), p(scale), p(out), 4, k, 40, x_slab, bits, 1,
+                                   _build.stream())
+        assert err != 0, (k, x_slab, bits)
+
+
 @pytest.mark.parametrize("m,k,n,group,dtype", [
     (1, 256, 40, 256, torch.bfloat16),       # decode kernels, one group
     (13, 1024, 72, 256, torch.bfloat16),     # decode kernels, ragged N, 4 groups
@@ -898,13 +1001,16 @@ def _k6_args(g, dev, shapes, n, lq, m, d, dtype, spread=0.2):
     return value, loc, attn.to(dtype).view(n, lq, m, levels, points)
 
 
-@pytest.mark.parametrize("shapes,n,lq,d,dtype", [
+K6_EDGES = [
     (((1, 1), (1, 7), (5, 1), (6, 9)), 1, 37, 4, torch.float32),  # 1-pixel levels
     (((23, 40), (46, 80)), 3, 1001, 32, torch.bfloat16),
     (((8, 8), (16, 16), (32, 32)), 3, 333, 8, torch.float32),
     (((8, 8), (16, 16), (32, 32)), 1, 333, 32, torch.float32),
     (((4, 5), (8, 10)), 3, 77, 4, torch.bfloat16),
-])
+]
+
+
+@pytest.mark.parametrize("shapes,n,lq,d,dtype", K6_EDGES)
 def test_ms_deform_attn_kernel(dev, shapes, n, lq, d, dtype):
     """Lq is no multiple of the 8 warps of a block; D 4 and 8 share a warp
     between heads."""
@@ -920,6 +1026,33 @@ def test_ms_deform_attn_kernel(dev, shapes, n, lq, d, dtype):
         assert rel_l2(got, ref) <= 1e-3
     else:
         assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("generic", [False, True], ids=["auto", "generic"])
+def test_ms_deform_attn_kernel_bit_exact_at_serving_shape(dev, generic):
+    """The serving layout (3 frames, levels 23x40, 46x80, 92x160, M 8, D 32,
+    L 3, P 4, bf16) with Lq cut to 2,000: both forms give the order model's
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    shapes = ((23, 40), (46, 80), (92, 160))
+    value, loc, attn = _k6_args(g, dev, shapes, 3, 2000, 8, 32, torch.bfloat16)
+    got = D.ms_deform_attn_sampler(value, shapes, loc, attn, generic=generic)
+    want = k6_order_model(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("generic", [False, True], ids=["auto", "generic"])
+@pytest.mark.parametrize("shapes,n,lq,d,dtype", K6_EDGES)
+def test_ms_deform_attn_kernel_bit_exact_at_edges(dev, shapes, n, lq, d, dtype, generic):
+    """test_ms_deform_attn_kernel's shapes, each form against the order
+    model bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    value, loc, attn = _k6_args(g, dev, shapes, n, lq, 8, d, dtype)
+    got = D.ms_deform_attn_sampler(value, shapes, loc, attn, generic=generic)
+    want = k6_order_model(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_ms_deform_attn_kernel_exact_samples(dev):

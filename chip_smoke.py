@@ -14,7 +14,8 @@ Phases (each prints its lines; any failure exits non-zero):
    stack frame and spills of each kernel compiled from ``mega_decode.cu``,
    ``fused_mlp.cu``, ``flash_attention.cu``, ``decode_attention.cu`` and
    ``ms_deform_attn.cu`` (K6's two forms), of K2's and K3's wgmma kernels,
-   K8's stream kernel, K10b's slab stream and K10f's product;
+   K8's stream kernel, K10a's byte stream, K10b's slab stream, K10e's
+   nibble stream and K10f's product;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -51,8 +52,11 @@ Phases (each prints its lines; any failure exits non-zero):
    weight dequantized to bf16), both at ragged edges; K6 at the serving
    shape also bit for bit against the order model of each channel's f32
    operations (``tests/test_torch_deform_sampler.py``), in both its
-   templated and its generic form; K10b at one row, three m-tiles, N % 4
-   != 0, f32 x and each format's smallest K;
+   templated and its generic form; K10a and K10b at one row, three
+   m-tiles with f32 x, N % 4 != 0 and each format's smallest K (K10a also
+   at N % 16 != 0, its bytes by cp.async, and N off its 96-column blocks);
+   K10e's nibble stream at 16 and 48 padded rows, N 64 and CK 64 with
+   K = CK;
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
@@ -1369,6 +1373,22 @@ def _perf_cases(dev):
                 lambda w_p=w_p, sc=sc, kw=kw: P.wp_matmul_plain(x, w_p, sc, **kw),
                 1e-3, 20, True, m * kdim * 2 + kdim * n * bits // 8 + n * 4 + m * n * 2,
                 {"bf16": 2.0 * m * kdim * n}, library=library))
+    # K10a's byte stream off the benches' shape: one row (one n-tile), three
+    # 16-row m-tiles with f32 x (rounded to bf16 by the kernel, as by the
+    # plain version) and N % 16 != 0 (the bytes by the consumers' cp.async),
+    # N % 4 != 0 (byte loads), N off the 96-column blocks by TMA, and the
+    # smallest K
+    for m, kdim, n, dtype in ((1, 4096, 11264, bf), (40, 4096, 4100, torch.float32),
+                              (5, 256, 70, bf), (16, 4096, 4112, bf), (8, 16, 4112, bf)):
+        w_q, sc = Q.quantize_weights(torch.randn(kdim, n, generator=g, device=dev) * 0.02)
+        xe = torch.randn(m, kdim, generator=g, device=dev).to(dtype)
+        cases.append(Case(
+            "K10a w8a16_matmul", f"edge w8a16 M={m} K={kdim} N={n} {str(dtype).split('.')[-1]} x",
+            lambda xe=xe, w_q=w_q, sc=sc: W.w8a16_matmul(xe, w_q, sc),
+            lambda xe=xe, w_q=w_q, sc=sc: W.w8a16_matmul_plain(xe, w_q, sc),
+            1e-3 if dtype == bf else 1e-5, 3, False,
+            m * kdim * xe.element_size() + kdim * n + n * 4 + m * n * xe.element_size(),
+            {"bf16": 2.0 * m * kdim * n}))
     # K10b's slab stream off the benches' shape: one row, three 16-row
     # m-tiles with N % 4 != 0 (the words by cp.async), f32 x (rounded to
     # bf16 by the kernel, as by the plain version: f32 sums alone differ),
@@ -1604,6 +1624,23 @@ def _probe_cases(dev):
         1e-3, 20, True, xi.numel() * 2 + kdim * n // 2 + n * 4 + mpad * n * 2,
         {"bf16": 2.0 * mpad * kdim * n}, library=weight_int4pack_library(xr, w4, scale),
         extra=one_bf16_step))
+    # the nibble stream off the bench's shape: 16 and 48 padded rows (half a
+    # row group, and a second one), N 64 (one partly filled block), and CK 64
+    # with K = CK (one chunk of 8 word rows a stage)
+    for me, ke, ne, cke in ((16, kdim, n, ck), (40, kdim, 4128, ck), (24, kdim, 64, ck),
+                            (24, 64, 4128, 64)):
+        w4e = torch.randint(-8, 8, (ke, ne), generator=g, device=dev, dtype=torch.int8)
+        w_p4e = MP.pack_nibble_words(w4e)
+        sce = torch.rand(ne, generator=g, device=dev) * 0.02 + 0.005
+        mpe = MP.xread_mpad(me, False)
+        xie = MP.deinterleave_chunks(torch.randn(me, ke, generator=g, device=dev).to(bf), cke,
+                                     mpe)
+        cases.append(Case(
+            "K10e nibble_matmul", f"edge w4a16 M={me} mpad={mpe} K={ke} N={ne} CK={cke}",
+            lambda xie=xie, w_p4e=w_p4e, sce=sce: MP.nibble_matmul(xie, w_p4e, sce),
+            lambda xie=xie, w_p4e=w_p4e, sce=sce: MP.nibble_matmul_plain(xie, w_p4e, sce),
+            1e-3, 3, False, xie.numel() * 2 + ke * ne // 2 + ne * 4 + mpe * ne * 2,
+            {"bf16": 2.0 * mpe * ke * ne}, extra=one_bf16_step))
 
     b, hgn, heads, t = MP.ROWRW
     q = torch.randn(hgn, b, heads * 128, generator=g, device=dev).to(bf)
@@ -3016,8 +3053,9 @@ def nvcc_report(log: str) -> list[dict]:
     ``int8_matmul.cu``'s wgmma and stream kernels (K2 at M > 16, both
     branches, K2's W8A8 at M <= 16, K8 at M <= 16), ``int4_matmul.cu``'s
     wgmma kernels (K3 at M > 16, both branches), ``reshape_probe.cu``'s
-    product (K10f), ``ms_deform_attn.cu``'s two forms (K6) and
-    ``stream_matmul.cu``'s slab stream (K10b), one dict a kernel, under the
+    product (K10f), ``ms_deform_attn.cu``'s two forms (K6),
+    ``stream_matmul.cu``'s slab and byte streams (K10b, K10a) and
+    ``megakernel_probe.cu``'s nibble stream (K10e), one dict a kernel, under the
     kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
@@ -3040,7 +3078,9 @@ def nvcc_report(log: str) -> list[dict]:
                     or (source.endswith("int4_matmul.cu") and "wgmma" in name)
                     or (source.endswith("reshape_probe.cu") and "product" in name)
                     or source.endswith("ms_deform_attn.cu")
-                    or (source.endswith("stream_matmul.cu") and "slab" in name)):
+                    or (source.endswith("stream_matmul.cu")
+                        and ("slab" in name or "byte_stream" in name))
+                    or (source.endswith("megakernel_probe.cu") and "nibble" in name)):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
             name, frame = None, ""

@@ -1,7 +1,7 @@
 // K10e: the kernels of the megakernel design probes
 // (tools/perf/bench_megakernel_probe.py): the x-read product (W8A8 or W8A16
 // on K2's packed words, x held in shared memory or read from L2), the tiny
-// identity kernel of the launch-overhead probe, the int4 nibble product
+// identity kernel of the launch-overhead probe, the int4 nibble stream
 // (W4A16) and the row read/write probe (a decode-attention matvec over a KV
 // block, one output row written at a dynamic index).
 //
@@ -15,10 +15,10 @@
 // multiply-adds a byte), the row probe 100.7 MB of keys for one query row a
 // block; the tiny kernel moves 16 KB and measures a launch's fixed cost.
 //
-// Probe product (x-read b and c, nibble): out = (sum over K-tiles of each
-// tile's product as f32) * scale, in bf16, the TPU kernels' numerics: an
-// int8 tile's exact int32 sum cast to f32 (mma.sync.m16n8k32.s8), a bf16
-// tile's taken in f32 (mma.sync.m16n8k16 bf16), the tiles added in order.
+// Probe product (x-read b and c): out = (sum over K-tiles of each tile's
+// product as f32) * scale, in bf16, the TPU kernels' numerics: an int8
+// tile's exact int32 sum cast to f32 (mma.sync.m16n8k32.s8), a bf16 tile's
+// taken in f32 (mma.sync.m16n8k16 bf16), the tiles added in order.
 // A block of eight warps owns 32 rows (two m-tiles) and works on units of
 // 32 columns: lane group g owns columns 4g..4g+3 of a unit, one in each
 // 8-column mma tile, so one 16-byte load fetches a thread's weight words of
@@ -28,7 +28,7 @@
 // or f32, warp order) into their f32 tile sums. The mma does not care which
 // real k its slots hold as long as A and B agree, so each thread's A
 // registers take the x of the k its B words hold: one 8-byte load a row.
-// Where x comes from (XSrc):
+// Where x comes from (XSrc), the question the probe asks:
 //  - kSmem (x-read b, the TPU's VMEM-resident tile stack): x is the
 //    (n_k, mpad, CK) stack; the grid is as many blocks as fit on the card,
 //    each walking its units with the tile loop outermost, so a block copies
@@ -36,13 +36,45 @@
 //    KB at bf16: bf16's whole 256 KB x would not fit a block's 227 KB, a
 //    tile does) and keeps its units' f32 sums in shared memory;
 //  - kGlobal2D (x-read c): x is the (mpad, K) array; a block a unit, each
-//    warp loading its A fragments from device memory (L2) at every k-step;
-//  - kDeint (nibble): x is the (n_k, mpad, CK) stack with each chunk's
-//    columns [even rows | odd rows], read as kGlobal2D reads.
-// The nibble words are tools/perf/bench_megakernel_probe.py's
-// pack_int4_rows: nibble i of word r is row 8r + i, signed. A word's even
-// nibbles meet the chunk's even half and its odd nibbles the odd half, one
-// k16 step each, the TPU kernel's xe . lo + xo . hi.
+//    warp loading its A fragments from device memory (L2) at every k-step.
+//
+// Nibble stream (W4A16): the words are tools/perf/bench_megakernel_probe.py's
+// pack_int4_rows (nibble i of word r is row 8r + i, signed), x the (n_k,
+// mpad, CK) stack with each chunk's columns [even rows | odd rows]; out =
+// (sum over chunks of xe . lo + xo . hi in f32) * scale, in bf16. Its first
+// form was the probe kernel above with x read as kGlobal2D reads, at 16% of
+// the byte bound: each 32-column block's warps read all of x from L2 at
+// every k-step (90 MB a call for 23 MB of words), each value went through a
+// shift pair and an I2F (about 12 us a call at 16 a clock an SM, against a
+// 7.2 us bound), and the products shared the conversion warps' issue with
+// four steps of loads in flight. This kernel:
+//  - gives a block 96 columns (3 TMA boxes of 32 word columns) of one
+//    32-row group over all of K (118 blocks at 11264 columns, one an SM);
+//  - streams the words through a ring of 4 stages of up to 64 word rows (512
+//    k) that warp 0 keeps full with TMA, and with each stage, by TMA from the
+//    stack, the x those rows meet: for each group of 16 word rows its
+//    chunk's even and odd halves' 64 columns (boxes of 32 rows x 128 bytes;
+//    a stage never spans two chunks, its rows dividing the chunk's), so x
+//    is read from L2 once a block. All of it in the 128-byte swizzle: boxes
+//    of 64-byte rows (8 word rows a box) held the ring to TMA's request rate;
+//    launched with programmatic dependent launch, its first stages' words
+//    load while the kernel before still runs;
+//  - takes the product transposed, W^T x^T, on mma.m16n8k16 bf16 with the 32
+//    x rows as four n-tiles: a k-step's slots are the even (or odd) nibbles
+//    of four word rows, one a thread quad lane, so a B pair is x at two
+//    neighbouring columns of the chunk's even (or odd) half and an A pair
+//    two nibbles of one word, the TPU kernel's xe . lo + xo . hi. Lane (g,
+//    t4) reads its 16-byte chunk g (4 columns) of word rows s ^ j of each
+//    group, s = {0, 10, 4, 14}[t4], j = 0 .. 3, and one 16-byte chunk of
+//    x for each pair of rows: the swizzled chunks of a quarter warp's
+//    loads, words and x alike, are then 8 distinct ones;
+//  - converts without I2F: a byte permute sets two nibbles of a word side by
+//    side, one LOP3 masks them, flips their sign bit (s becomes s + 8) and
+//    ORs them into the bf16 128.0, one bf16 pair subtract of 136 gives s
+//    (exact; bf16_mma.cuh's nibble_pair_bf16x2);
+//  - each warp's f32 sums run through the chunks in order; the 12 warps'
+//    sums meet in shared memory, out = sum * scale in f32, rounded to bf16
+//    once.
 //
 // Row probe: grid (S programs, T / 128); a block's 8 warps split the G
 // heads and its 32 lanes four columns each (one 16-byte load of a key word
@@ -60,13 +92,14 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 #include "w4a8.cuh"  // mma_s8
 #include "weight_words.cuh"
 
 namespace {
 
-enum class Fmt { kS8, kBf16, kNib };  // int8 words x int8 x, int8 words x bf16 x, nibbles x bf16 x
-enum class XSrc { kSmem, kGlobal2D, kDeint };
+enum class Fmt { kS8, kBf16 };  // int8 words x int8 x, int8 words x bf16 x
+enum class XSrc { kSmem, kGlobal2D };
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -96,16 +129,12 @@ template <> struct FmtTraits<Fmt::kBf16> {  // 4 word rows (16 k) a step, one a 
   using Acc = float;
   static constexpr int kEsz = 2, kKStep = 16;
 };
-template <> struct FmtTraits<Fmt::kNib> {  // 4 nibble word rows (32 k) a step, two mma steps
-  using Acc = float;
-  static constexpr int kEsz = 2, kKStep = 32;
-};
 
 // a step's operands of one thread: weight words of its four columns, and
 // x of its 4 rows (m-tile mt, half h: rows 16mt + g + 8h) for each mma
 template <Fmt F> struct Frag {
   uint4 w[F == Fmt::kS8 ? 2 : 1];
-  uint2 x[F == Fmt::kNib ? 2 : 1][2][2];  // [mma step][mt][h]
+  uint2 x[2][2];  // [mt][h]
 };
 
 __device__ __forceinline__ uint2 load8(const unsigned char* p, bool live) {
@@ -121,10 +150,8 @@ __device__ __forceinline__ const unsigned char* x_at(const ProbeArgs& p,
   constexpr int esz = FmtTraits<F>::kEsz;
   if constexpr (X == XSrc::kSmem) {
     return xs + (size_t)row * (p.ck * esz + kPadBytes) + (size_t)lk * esz;
-  } else if constexpr (X == XSrc::kGlobal2D) {
-    return p.x + ((size_t)row * p.k + (size_t)kk * p.ck + lk) * esz;
   } else {
-    return p.x + (((size_t)kk * p.mpad + row) * p.ck + lk) * esz;
+    return p.x + ((size_t)row * p.k + (size_t)kk * p.ck + lk) * esz;
   }
 }
 
@@ -132,7 +159,7 @@ template <Fmt F, XSrc X>
 __device__ __forceinline__ void load_step(Frag<F>& f, const ProbeArgs& p,
                                           const unsigned char* xs, int kk, int s, int col0,
                                           int r0, int g, int t4) {
-  // x rows of the thread: global (kGlobal2D, kDeint) or block-local (kSmem)
+  // x rows of the thread: global (kGlobal2D) or block-local (kSmem)
   int rows[2][2];
   bool live[2][2];
 #pragma unroll
@@ -153,8 +180,8 @@ __device__ __forceinline__ void load_step(Frag<F>& f, const ProbeArgs& p,
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        f.x[0][mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, lk), live[mt][h]);
-  } else if constexpr (F == Fmt::kBf16) {
+        f.x[mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, lk), live[mt][h]);
+  } else {
     // word row wr: tile-local k 16s + 4t4 .. + 3
     const int wr = (kk * p.ck + 16 * s) / 4 + t4;
     f.w[0] = w_words4<WLayout::kWords>(p.w, wr, col0, p.n);
@@ -163,28 +190,11 @@ __device__ __forceinline__ void load_step(Frag<F>& f, const ProbeArgs& p,
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        f.x[0][mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, lk), live[mt][h]);
-  } else {
-    // nibble word row wr: tile-local k l0 .. l0 + 7; even ones at l0 / 2 of
-    // the chunk's first half, odd ones at l0 / 2 of its second half
-    const int wr = (kk * p.ck + 32 * s) / 8 + t4;
-    f.w[0] = w_words4<WLayout::kWords>(p.w, wr, col0, p.n);
-    const int l0 = 32 * s + 8 * t4;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          f.x[j][mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, j * (p.ck / 2) + l0 / 2),
-                                live[mt][h]);
+        f.x[mt][h] = load8(x_at<F, X>(p, xs, rows[mt][h], kk, lk), live[mt][h]);
   }
 }
 
 __device__ __forceinline__ int s8_byte(uint32_t w, int i) { return (int)(int8_t)(w >> (8 * i)); }
-__device__ __forceinline__ int nibble(uint32_t w, int i) {
-  return (int)(w << (28 - 4 * i)) >> 28;
-}
 
 template <Fmt F>
 __device__ __forceinline__ void mma_step(typename FmtTraits<F>::Acc (&acc)[2][4][4],
@@ -195,8 +205,7 @@ __device__ __forceinline__ void mma_step(typename FmtTraits<F>::Acc (&acc)[2][4]
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       // a0, a2: row g (k 8t4.., 8t4+4..); a1, a3: row g + 8
-      const uint32_t a[4] = {f.x[0][mt][0].x, f.x[0][mt][1].x, f.x[0][mt][0].y,
-                             f.x[0][mt][1].y};
+      const uint32_t a[4] = {f.x[mt][0].x, f.x[mt][1].x, f.x[mt][0].y, f.x[mt][1].y};
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const uint32_t b[2] = {w0[nt], w1[nt]};
@@ -204,27 +213,18 @@ __device__ __forceinline__ void mma_step(typename FmtTraits<F>::Acc (&acc)[2][4]
       }
     }
   } else {
+    uint32_t b[4][2];
 #pragma unroll
-    for (int j = 0; j < (F == Fmt::kNib ? 2 : 1); ++j) {
-      uint32_t b[4][2];
+    for (int nt = 0; nt < 4; ++nt) {  // values 0..3: k 4t4 .. 4t4 + 3
+      const uint32_t w = w0[nt];
+      b[nt][0] = pair(bf16_bits(s8_byte(w, 0)), bf16_bits(s8_byte(w, 1)));
+      b[nt][1] = pair(bf16_bits(s8_byte(w, 2)), bf16_bits(s8_byte(w, 3)));
+    }
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t w = w0[nt];
-        if constexpr (F == Fmt::kBf16) {  // values 0..3: k 4t4 .. 4t4 + 3
-          b[nt][0] = pair(bf16_bits(s8_byte(w, 0)), bf16_bits(s8_byte(w, 1)));
-          b[nt][1] = pair(bf16_bits(s8_byte(w, 2)), bf16_bits(s8_byte(w, 3)));
-        } else {  // nibbles j, j + 2 | j + 4, j + 6
-          b[nt][0] = pair(bf16_bits(nibble(w, j)), bf16_bits(nibble(w, j + 2)));
-          b[nt][1] = pair(bf16_bits(nibble(w, j + 4)), bf16_bits(nibble(w, j + 6)));
-        }
-      }
+    for (int mt = 0; mt < 2; ++mt) {
+      const uint32_t a[4] = {f.x[mt][0].x, f.x[mt][1].x, f.x[mt][0].y, f.x[mt][1].y};
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t a[4] = {f.x[j][mt][0].x, f.x[j][mt][1].x, f.x[j][mt][0].y,
-                               f.x[j][mt][1].y};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
-      }
+      for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
     }
   }
 }
@@ -353,6 +353,239 @@ int launch_probe(const void* x, const void* w, const void* scale, void* out, int
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ nibble stream
+namespace nib {
+constexpr int kBoxCols = 32;                       // word columns a TMA box: 128 bytes a word row
+constexpr int kBoxes = 3;                          // boxes a block: 96 columns
+constexpr int kParts = 4;                          // consumer warps a box
+constexpr int kConsumers = kBoxes * kParts;
+constexpr int kThreads = 32 * (1 + kConsumers);    // warp 0 loads
+constexpr int kXRows = 32;                         // x rows a block: four 8-row n-tiles
+constexpr int kGroupRows = 16;                     // word rows of an x box: 64 columns of a half
+constexpr int kMaxRows = 64;                       // word rows a stage, at most (512 k)
+constexpr int kWBoxBytes = kMaxRows * kBoxCols * 4;               // 8 KB
+constexpr int kWBytes = kBoxes * kWBoxBytes;                      // 24 KB
+constexpr int kXBoxBytes = kXRows * 128;                          // 4 KB
+constexpr int kXBytes = kMaxRows / kGroupRows * 2 * kXBoxBytes;   // an even and an odd box a group
+constexpr int kStageBytes = kWBytes + kXBytes;                    // 56 KB
+constexpr int kSmemMax = 227 * 1024;
+constexpr int kStages = (kSmemMax - 1024 - 16 * 8) / kStageBytes;  // 4
+static_assert(kStages >= 2 && kStageBytes % 1024 == 0, "a ring of 1024-byte aligned stages");
+
+// Block (strip, row group): word columns 96 strip.. over all of K, x rows 32
+// group... w_map is the (K/8, N) int32 word map in boxes of 32 columns x sr
+// word rows, x_map the (n_k, mpad, CK) stack's in boxes of 64 columns x 32
+// rows, both in the 128-byte swizzle; sr (64, 32, 16 or 8) divides the
+// chunk's CK / 8 word rows.
+__global__ void __launch_bounds__(kThreads, 1)
+nibble_stream_kernel(const __grid_constant__ CUtensorMap w_map,
+                     const __grid_constant__ CUtensorMap x_map, const float* __restrict__ scale,
+                     __nv_bfloat16* __restrict__ out, int mpad, int k, int n, int ck, int sr) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int n0 = blockIdx.x * kBoxes * kBoxCols, r0 = blockIdx.y * kXRows;
+  const int chunk_rows = ck / 8, tiles = k / 8 / sr;
+  const int groups = (sr + kGroupRows - 1) / kGroupRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // the next kernel may start its own first stages while this one runs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  float acc[2][4][4] = {};  // 16-column m-tile, 8-row n-tile
+  if (warp == 0) {
+    // ------------------------------------------------------------ producer
+    // tile i into stage i % kStages once the consumers have released it:
+    // its words, and for each group of 16 of its word rows the chunk's even
+    // and odd halves at those rows (x's 64-column boxes: 128-byte rows, as
+    // the words', for the requests a byte). The first stages' words go out
+    // at once, while the kernel before may still run (the words and scales
+    // are not written by it); x only after griddepcontrol.wait
+    if (lane == 0) {
+      auto load_w = [&](int i) {
+        const int s = i % kStages;
+        uint8_t* st = smem + s * kStageBytes;
+        mbar_arrive_expect_tx(&full[s], kBoxes * sr * kBoxCols * 4 + groups * 2 * kXBoxBytes);
+        for (int b = 0; b < kBoxes; ++b)
+          tma_load_2d(st + b * kWBoxBytes, &w_map, &full[s], n0 + b * kBoxCols, i * sr);
+      };
+      auto load_x = [&](int i) {
+        uint8_t* xs = smem + (i % kStages) * kStageBytes + kWBytes;
+        const int kk = i * sr / chunk_rows, lw = i * sr - kk * chunk_rows;
+        for (int gp = 0; gp < groups; ++gp)
+          for (int h = 0; h < 2; ++h)
+            tma_load_3d(xs + (2 * gp + h) * kXBoxBytes, &x_map, &full[i % kStages],
+                        h * (ck / 2) + 4 * (lw + kGroupRows * gp), r0, kk);
+      };
+      const int pre = min(kStages, tiles);
+      for (int i = 0; i < pre; ++i) load_w(i);
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      for (int i = 0; i < pre; ++i) load_x(i);
+      for (int i = pre; i < tiles; ++i) {
+        mbar_wait(&empty[i % kStages], ((i / kStages) - 1) & 1);
+        load_w(i);
+        load_x(i);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    // Consumer c takes box c % kBoxes and groups c / kBoxes, + kParts, .. of
+    // 16 word rows of each stage. In a group, lane (g, t4) takes word rows
+    // q = s ^ j (s = {0, 10, 4, 14}[t4], j = 0 .. 3), the even and odd row
+    // of a pair together: the 16-byte chunk g of each row (columns 4g ..
+    // 4g + 3; m-tile 0's fragment rows g, g + 8 the first two, m-tile 1's
+    // the last two), and for each n-tile's row g + 8 nt the 16 bytes of x's
+    // even or odd half at the pair's columns 4q .. 4q + 7. k-step (q, h):
+    // slots 2t4, 2t4 + 1 are the row's nibbles (h, 2 + h), slots 2t4 + 8,
+    // 2t4 + 9 nibbles (4 + h, 6 + h), and x's half h at columns 4q, 4q + 1
+    // and 4q + 2, 4q + 3. Rows past a stage of 8 convert as zeros (their x
+    // box columns are the next rows', or zeros).
+    const int c = warp - 1, box = c % kBoxes, part = c / kBoxes;
+    const int s16 = ((10 * (t4 & 1)) ^ (5 * (t4 >> 1))) & ~1;
+    const uint32_t bias = 0x43084308u;
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint8_t* st = smem + s * kStageBytes;
+      const uint32_t* wst = reinterpret_cast<const uint32_t*>(st + box * kWBoxBytes);
+      for (int gp = part; gp < groups; gp += kParts) {
+#pragma unroll
+        for (int jj = 0; jj < 4; jj += 2) {
+          // word rows q0 (even) and q0 + 1: their x columns 4q0 .. 4q0 + 7
+          // are one 16-byte chunk of each x row
+          const int q0 = s16 ^ jj;
+          uint32_t lo[2][4], hi[2][4];  // nibbles of bytes (0, 1) and (2, 3) side by side
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            const int q = q0 + jp, r = kGroupRows * gp + q;
+            uint4 v = *reinterpret_cast<const uint4*>(wst + r * kBoxCols + ((g ^ (q & 7)) << 2));
+            if (sr < kGroupRows && r >= sr) v = make_uint4(0u, 0u, 0u, 0u);  // nibbles 0: values 0
+            const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              lo[jp][cc] = __byte_perm(wv[cc], 0u, 0x0100u);
+              hi[jp][cc] = __byte_perm(wv[cc], 0u, 0x0302u);
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint8_t* xb = st + kWBytes + (2 * gp + h) * kXBoxBytes;
+            uint4 xv[4];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)  // row g + 8nt; 128-byte swizzle: chunk ^ row % 8
+              xv[nt] = *reinterpret_cast<const uint4*>(xb + 128 * (g + 8 * nt) +
+                                                       (((q0 >> 1) ^ g) << 4));
+#pragma unroll
+            for (int jp = 0; jp < 2; ++jp) {
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const uint32_t a[4] = {nibble_pair_bf16x2(lo[jp][2 * mt], h, bias),
+                                       nibble_pair_bf16x2(lo[jp][2 * mt + 1], h, bias),
+                                       nibble_pair_bf16x2(hi[jp][2 * mt], h, bias),
+                                       nibble_pair_bf16x2(hi[jp][2 * mt + 1], h, bias)};
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                  const uint32_t b[2] = {jp ? xv[nt].z : xv[nt].x, jp ? xv[nt].w : xv[nt].y};
+                  mma_bf16(acc[mt][nt], a, b);
+                }
+              }
+            }
+          }
+        }
+      }
+      release_stage(&empty[s], lane);  // the stage's words and x are in registers
+    }
+  }
+
+  // the consumers' f32 sums meet in shared memory (the ring is idle: every
+  // tile has been consumed) and are added in warp order; out is written
+  // only after the kernel before has finished (griddepcontrol.wait)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();
+  // [consumer][x row][column of its box], the column XOR-ed by (row / 2) % 4:
+  // a store's 32 lanes (rows 2t4, columns 4g) then fall in distinct banks
+  float* fold = reinterpret_cast<float*>(smem);
+  if (warp > 0) {
+    const int c = warp - 1;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // fragment row g + 8 (e >> 1), column 2t4 + (e & 1)
+          fold[(c * kXRows + nt * 8 + 2 * t4 + (e & 1)) * kBoxCols +
+               ((4 * g + 2 * mt + (e >> 1)) ^ t4)] = acc[mt][nt][e];
+  }
+  __syncthreads();
+  constexpr int kCols = kBoxes * kBoxCols;
+  for (int o = threadIdx.x; o < kXRows * kCols; o += kThreads) {
+    const int row = o / kCols, cl = o % kCols, col = n0 + cl;
+    if (r0 + row >= mpad || col >= n) continue;
+    const float* f = fold + row * kBoxCols + ((cl % kBoxCols) ^ ((row >> 1) & 3));
+    float sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < kParts; ++h) sum += f[(cl / kBoxCols + kBoxes * h) * kXRows * kBoxCols];
+    out[(size_t)(r0 + row) * n + col] = __float2bfloat16_rn(sum * scale[col]);
+  }
+}
+
+int launch(const void* x, const void* w, const void* scale, void* out, int mpad, int k, int n,
+           int ck, cudaStream_t s) {
+  if (mpad < 1 || ck < 64 || ck % 64 || k < ck || k % ck || n < kBoxCols || n % kBoxCols)
+    return (int)cudaErrorInvalidValue;
+  int sr = kMaxRows;  // a stage's word rows: the largest of 64, 32, 16, 8 dividing a chunk's
+  while ((ck / 8) % sr) sr /= 2;
+  CUtensorMap w_map, x_map;
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)(k / 8)};
+    const cuuint64_t strides[1] = {(cuuint64_t)n * 4};
+    const cuuint32_t box[2] = {kBoxCols, (cuuint32_t)sr};
+    if (!encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, w, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  }
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)ck, (cuuint64_t)mpad, (cuuint64_t)(k / ck)};
+    const cuuint64_t strides[2] = {(cuuint64_t)ck * 2, (cuuint64_t)mpad * ck * 2};
+    const cuuint32_t box[3] = {4 * kGroupRows, kXRows, 1};
+    if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        nibble_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const dim3 grid((n + kBoxes * kBoxCols - 1) / (kBoxes * kBoxCols), (mpad + kXRows - 1) / kXRows);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 1024 + kStages * kStageBytes + 16 * kStages;
+  cfg.stream = s;
+  cudaLaunchAttribute pdl;  // programmatic dependent launch (see the producer)
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, nibble_stream_kernel, w_map, x_map,
+                                 static_cast<const float*>(scale),
+                                 static_cast<__nv_bfloat16*>(out), mpad, k, n, ck, sr);
+}
+}  // namespace nib
+
 // ------------------------------------------------------------ tiny kernel
 __global__ void tiny_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, int n8) {
   // the TPU kernel's weakly typed 1.0000001 becomes the bf16 1.0
@@ -455,7 +688,7 @@ extern "C" int mmor_xread_probe(const void* x, const void* w, const void* scale,
 // (mpad, N) bf16.
 extern "C" int mmor_nibble_probe(const void* x, const void* w, const void* scale, void* out,
                                  int mpad, int k, int n, int ck, void* stream) {
-  return launch_probe<Fmt::kNib, XSrc::kDeint>(x, w, scale, out, mpad, k, n, ck, stream);
+  return nib::launch(x, w, scale, out, mpad, k, n, ck, static_cast<cudaStream_t>(stream));
 }
 
 // tiny probe: out = x * bf16(1.0000001) over n bf16 values, n % 8 == 0.

@@ -1,10 +1,10 @@
 // Weight-word loaders shared by K8's tiled kernel (int8_matmul.cu), the
-// weight-stream kernels (stream_matmul.cu: K10a, K10b) and the megakernel
-// probe (megakernel_probe.cu). A word is
+// row-word stream (stream_matmul.cu's stream_kernel: K10c's bf16 mode, K2's
+// W8A16 at decode rows) and the megakernel probe's x-read product
+// (megakernel_probe.cu). A word is
 // the 32 bits of one column that feed one thread's mma B register:
 //  - kWords: the weight is already (R, N) int32 words (pack_int8_rows'
-//    rows 4r..4r+3, or the slab words of pack4_int8 / pack8_int4), one
-//    load;
+//    rows 4r..4r+3), one load;
 //  - kBytes: the unpacked row-major (K, N) int8 weight; word r of a column
 //    is the bytes of rows 4r..4r+3, lowest row in the lowest byte.
 #pragma once

@@ -252,8 +252,12 @@ def nibble_matmul_plain(xi: torch.Tensor, w_p: torch.Tensor,
 def nibble_matmul(xi: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """K10e nibble product: ``nibble_matmul_plain``'s function.
 
-    CPU: ``nibble_matmul_plain``. CUDA: ``csrc/megakernel_probe.cu`` (CK % 64
-    == 0, N % 32 == 0); counts its launches in ``nibble_matmul.launches``."""
+    CPU: ``nibble_matmul_plain``. CUDA: ``csrc/megakernel_probe.cu``'s
+    nibble stream (CK % 64 == 0, N % 32 == 0), which reads xi by TMA once a
+    block. It is launched with programmatic dependent launch and loads its
+    first words before the kernel ahead of it has finished: ``w_p`` and
+    ``scale`` must not be that kernel's output. Counts its launches in
+    ``nibble_matmul.launches``."""
     n_k, mpad, ck = xi.shape
     kp, n = w_p.shape
     if kp * 8 != n_k * ck or tuple(scale.shape) != (n,):

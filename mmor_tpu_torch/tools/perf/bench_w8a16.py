@@ -59,8 +59,12 @@ def w8a16_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> tor
     """K10a: x (M, K) @ (w_q (K, N) int8 * scale (N,) f32) as W8A16 -> (M, N)
     in x.dtype (bf16 or f32).
 
-    CPU: ``w8a16_matmul_plain``. CUDA: ``csrc/stream_matmul.cu`` (K a
-    multiple of 16). Counts its launches in ``w8a16_matmul.launches``."""
+    CPU: ``w8a16_matmul_plain``. CUDA: ``csrc/stream_matmul.cu``'s byte
+    stream (K a multiple of 16), which reads x in its own (M, K) order and
+    rounds f32 x to bf16 itself. It is launched with programmatic dependent
+    launch and loads its first weight rows before the kernel ahead of it has
+    finished: ``w_q`` and ``scale`` must not be that kernel's output. Counts
+    its launches in ``w8a16_matmul.launches``."""
     m, k = x.shape
     if tuple(w_q.shape[:1]) != (k,) or tuple(scale.shape) != (w_q.shape[1],):
         raise ValueError(f"w8a16_matmul: x {tuple(x.shape)}, w_q {tuple(w_q.shape)}, "
@@ -76,11 +80,10 @@ def w8a16_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> tor
         raise TypeError("w8a16_matmul: w_q must be int8, scale f32")
     if k % 16:
         raise ValueError(f"w8a16_matmul: the kernel needs K % 16 == 0, K={k}")
-    xb = _build.aligned(x.to(torch.bfloat16))
-    w_q, scale = _build.aligned(w_q), _build.aligned(scale)
+    x, w_q, scale = _build.aligned(x), _build.aligned(w_q), _build.aligned(scale)
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     err = _build.library().mmor_w8a16_bytes(
-        _build.ptr(xb), _build.ptr(w_q), _build.ptr(scale), _build.ptr(out), m, k, n,
+        _build.ptr(x), _build.ptr(w_q), _build.ptr(scale), _build.ptr(out), m, k, n,
         int(x.dtype == torch.bfloat16), _build.stream())
     _build.check(err, "w8a16_matmul")
     w8a16_matmul.launches += 1

@@ -28,7 +28,9 @@ f32 x, and K % 64 != 0 refused; K8's stream
 kernel at one row and at 16, its weight by TMA, by cp.async (N % 16 != 0)
 and byte by byte (N % 4 != 0), one k tile and a ragged last one, and its
 tiled kernel above 16 rows, K10a and K10b's ragged N and M above
-one 16-row tile; K10b's slab stream in both formats with bf16 and f32 x at
+one 16-row tile; K10a's byte stream at one row, N % 16 != 0 (its bytes by
+cp.async), N off its 96-column blocks, the smallest K, and 32 calls
+back to back; K10b's slab stream in both formats with bf16 and f32 x at
 M 1, 5, 16 and 40, N 11264, N off its 96-column blocks and N % 4 != 0, the
 smallest K and K 4096, long K (the slabs padded where a slab's run is not
 a multiple of 16 bytes), 32 calls back to back, and a K it refuses; K6's
@@ -39,7 +41,8 @@ the 7B tail, above one 16-row tile and above 64 rows, with an f32
 residual, and its refusals; K10c's two modes at ragged shapes; K10d's
 windows that reach outside the map; K10e's x-read at both x layouts
 and widths (two row groups, half a row group, a bf16 tile past shared
-memory refused), tiny, nibble and row kernels (both modes, one
+memory refused), tiny, nibble (16 and 48 padded rows, N 64, CK 64 and
+576, whose stages hold 8 word rows) and row kernels (both modes, one
 head, one 128-column block), K10f's copies and products at ragged shapes
 (K that the cluster's 16 ranks do not divide, ranks with no k).
 Every test needs a CUDA device and skips without one (the kernels have no CPU mode); run them on the card with
@@ -521,9 +524,14 @@ def test_decode_attention_layer_kernel(dev, scale_dtype, q_dtype, t):
     (16, 4096, 11008, torch.bfloat16),  # the benches' shapes
     (5, 256, 70, torch.bfloat16),       # ragged N, N % 4 != 0
     (40, 512, 64, torch.float32),       # three 16-row m-tiles, f32 x
+    (1, 4096, 11264, torch.bfloat16),   # one row: one n-tile
+    (40, 4096, 4100, torch.float32),    # N % 16 != 0: K10a's bytes by cp.async
+    (16, 4096, 4112, torch.bfloat16),   # N off the 96-column blocks, by TMA
+    (8, None, 4112, torch.bfloat16),    # the smallest K: 16 (32 at int4)
 ])
 def test_stream_matmul_kernels(dev, kernel, m, k, n, dtype):
     g = torch.Generator(device=dev).manual_seed(14)
+    k = (32 if kernel == "w4p" else 16) if k is None else k
     x = randn(g, m, k, dev=dev, dtype=dtype)
     w = torch.randn(k, n, generator=g, device=dev) * 0.02
     if kernel == "w8a16":
@@ -548,6 +556,23 @@ def test_stream_matmul_kernels(dev, kernel, m, k, n, dtype):
     assert counted.launches == before + 1
     assert out.dtype == dtype and out.shape == (m, n)
     assert rel_l2(out, ref) <= (1e-3 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_w8a16_matmul_back_to_back(dev):
+    """32 K10a calls queued back to back at the benches' width, each on
+    other x and output buffers the caching allocator hands back, every
+    result right: the byte stream's TMA ring releases a stage only after its
+    reads, and programmatic dependent launch lets a call's first weight rows
+    load while the call before still runs."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    k, n, calls = 4096, 11264, 32
+    xs = randn(g, calls, 16, k, dev=dev)
+    w_q, scale = Q.quantize_weights(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    torch.cuda.synchronize()
+    outs = [W.w8a16_matmul(x, w_q, scale) for x in xs]
+    torch.cuda.synchronize()
+    errs = [rel_l2(out, W.w8a16_matmul_plain(x, w_q, scale)) for x, out in zip(xs, outs)]
+    assert max(errs) <= 1e-3, errs
 
 
 def _slab_operands(g, dev, fmt, k, n):
@@ -1264,9 +1289,17 @@ def test_tiny_probe_kernel(dev, shape):
     assert torch.equal(out, MP.tiny_plain(x)) and torch.equal(out, x)
 
 
-@pytest.mark.parametrize("m,k,n,ck", [(24, 4096, 11264, 2048), (5, 512, 64, 256)])
+@pytest.mark.parametrize("m,k,n,ck", [
+    (24, 4096, 11264, 2048),  # the bench's shape
+    (5, 512, 64, 256),
+    (16, 4096, 11264, 2048),  # mpad 16: half a 32-row group
+    (40, 4096, 4128, 2048),   # mpad 48: two row groups; N off the 96-column blocks
+    (24, 4096, 64, 2048),     # N 64: one block, partly filled
+    (24, 64, 4128, 64),       # CK 64, K = CK: stages of 8 word rows
+    (24, 1152, 4128, 576),    # CK 576 (72 word rows): stages of 8, two chunks
+])
 def test_nibble_probe_kernel(dev, m, k, n, ck):
-    """K10e nibble product against its plain version: one bf16 step at the
+    """K10e nibble stream against its plain version: one bf16 step at the
     largest output."""
     g = torch.Generator(device=dev).manual_seed(27)
     w_p = MP.pack_nibble_words(torch.randint(-8, 8, (k, n), generator=g, device=dev,

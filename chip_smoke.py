@@ -15,7 +15,7 @@ Phases (each prints its lines; any failure exits non-zero):
    ``fused_mlp.cu``, ``flash_attention.cu``, ``decode_attention.cu`` and
    ``ms_deform_attn.cu`` (K6's two forms), of K2's and K3's wgmma kernels,
    K8's stream kernel, K10a's byte stream, K10b's slab stream, K10e's
-   nibble stream and K10f's product;
+   nibble stream and int8 x-read stream (both x layouts) and K10f's product;
 2. kernel vs plain: each kernel against its plain PyTorch version at the
    serving paths' shapes (K7-K10f at the microbenchmarks': K9 at the 7B
    decode tail at batch 8 and 14, beside the same tail unfused through
@@ -56,7 +56,10 @@ Phases (each prints its lines; any failure exits non-zero):
    m-tiles with f32 x, N % 4 != 0 and each format's smallest K (K10a also
    at N % 16 != 0, its bytes by cp.async, and N off its 96-column blocks);
    K10e's nibble stream at 16 and 48 padded rows, N 64 and CK 64 with
-   K = CK;
+   K = CK; K10e's int8 x-read at both x layouts at mpad 64, N 4160 (off its
+   96-column blocks) and K = CK = 64; K9 also at batch 1 and 17 (a second
+   row group), with an f32 residual, and twice back to back with its inputs
+   rewritten between the launches;
 3. int8 path: MM2SG-7B ``--quantize int8`` ``generate_stepwise`` (batch 8,
    prompt 128 with left padding, raw uint8 views at their native sizes, 300
    new tokens), timed twice after a warm run; the launch counts of K1, K2
@@ -1484,8 +1487,10 @@ def _tail_gather_cases(dev):
     bf16 activations and residual), with the same tail unfused through three
     K2 W8A16 launches or three K10c bf16-mode launches and eager ops timed
     beside it (``k2_chain_ms``, ``k10c_chain_ms``) and cuBLAS bf16 on the
-    dequantized weights as the library call, and at batch 14 with an f32
-    residual (off the path: the error without the output's bf16 rounding); K10c in both
+    dequantized weights as the library call; off the path at batch 1 and 17
+    (a second row group), at batch 14 with an f32 residual (the error
+    without the output's bf16 rounding) and twice back to back with the
+    inputs rewritten between the launches; K10c in both
     modes at ``bench_bitcast``'s M 16 x 4096 x 11264 (mxu8 bit for bit, bf16
     within one bf16 step at the largest output); K10d at ``bench_dma_gather``'s 2^18
     windows, bit for bit, torch indexing of the same windows as the library
@@ -1503,10 +1508,14 @@ def _tail_gather_cases(dev):
     cases = []
     cfg = LlamaConfig()
     dq, d, f = cfg.dim, cfg.dim, cfg.ffn_dim
-    ops = FM.tail_operands(14, dq, d, f, dev, g)
+    ops = FM.tail_operands(17, dq, d, f, dev, g)
     deq = [FM.dequantized(ops[i], ops[i + 1]) for i in (3, 5, 7)]
     wbytes = FM.weight_bytes(dq, d, f)
-    for b in (8, 14):
+
+    def tail_bytes(b, res_size=2):
+        return wbytes + (4 * d + 2 * f) * 4 + b * (dq * 2 + 2 * d * res_size)
+
+    for b in (8, 14, 1, 17):  # the bench's batches (on the path), one row and two row groups
         args = (ops[0][:b].contiguous(), ops[1][:b].contiguous(), *ops[2:])
 
         def chain(out, ref, args=args):
@@ -1516,18 +1525,35 @@ def _tail_gather_cases(dev):
         cases.append(Case(
             "K9 fused_o_mlp", f"7B tail B={b} D={d} F={f}",
             lambda a=args: fused_mlp.fused_o_mlp(*a),
-            lambda a=args: fused_mlp.fused_o_mlp_plain(*a), K9_BOUND, 20, True,
-            wbytes + (4 * d + 2 * f) * 4 + b * (dq + 2 * d) * 2, {"bf16": 2.0 * b * wbytes},
-            library=lambda a=args: FM.library_tail(*a[:3], *deq), extra=chain))
+            lambda a=args: fused_mlp.fused_o_mlp_plain(*a), K9_BOUND, 20, b in (8, 14),
+            tail_bytes(b), {"bf16": 2.0 * b * wbytes},
+            library=lambda a=args: FM.library_tail(*a[:3], *deq),
+            extra=chain if b in (8, 14) else None))
+    # twice back to back on one stream, the activations rewritten in place
+    # between the launches (the second must read none of the first's
+    # scratch: its barriers order every activation it reads)
+    attn, res = ops[0][:14].clone(), ops[1][:14].clone()
+    attn2, res2 = ops[0][3:17].flip(0).contiguous(), ops[1][3:17].contiguous()
+
+    def twice(kernel):
+        a, r = attn.clone(), res.clone()
+        first = kernel(a, r, *ops[2:])
+        a.copy_(attn2)
+        r.copy_(res2)
+        return torch.cat([first, kernel(a, r, *ops[2:])])
+
+    cases.append(Case(
+        "K9 fused_o_mlp", f"7B tail B=14 D={d} F={f} twice, inputs rewritten between",
+        lambda: twice(fused_mlp.fused_o_mlp), lambda: twice(fused_mlp.fused_o_mlp_plain),
+        K9_BOUND, 10, False, 2 * tail_bytes(14), {"bf16": 4.0 * 14 * wbytes}))
     # the same tail with an f32 residual, so an f32 output: no rounding of
     # the output itself, which at bf16 turns the h and m roundings' small
     # moves into whole bf16 steps of some outputs (not on a path)
-    args = (ops[0], ops[1].float(), *ops[2:])
+    args = (ops[0][:14].contiguous(), ops[1][:14].float(), *ops[2:])
     cases.append(Case(
         "K9 fused_o_mlp", f"7B tail B=14 D={d} F={f} f32 residual",
         lambda: fused_mlp.fused_o_mlp(*args), lambda: fused_mlp.fused_o_mlp_plain(*args),
-        K9_BOUND, 20, False, wbytes + (4 * d + 2 * f) * 4 + 14 * (dq * 2 + 2 * d * 4),
-        {"bf16": 2.0 * 14 * wbytes}))
+        K9_BOUND, 20, False, tail_bytes(14, 4), {"bf16": 2.0 * 14 * wbytes}))
 
     m, kdim, n = 16, 4096, 11264
     x = torch.randn(m, kdim, generator=g, device=dev).to(bf)
@@ -1570,7 +1596,8 @@ def _probe_cases(dev):
     from a generator of their own: the x-read product at M 24 x 4096 x
     11264 on int8 x (bit for bit, both x layouts; ``torch._int_mm`` with the
     rescale as the library call) and bf16 x (off the path; within one bf16
-    step; ``torch._weight_int8pack_mm``); the tiny kernel on (16, 256) bf16
+    step; ``torch._weight_int8pack_mm``), and on int8 x off the path at
+    mpad 64, N 4160 (off its 96-column blocks) and K = CK = 64; the tiny kernel on (16, 256) bf16
     (bit for bit; the eager ``x * 1.0`` is the library call); the nibble
     product at the same shape (one bf16 step; ``torch._weight_int4pack_mm``);
     the row probe over 48 (16 x 128, 1024) key blocks, static and dynamic
@@ -1589,22 +1616,37 @@ def _probe_cases(dev):
     w_p = Q.pack_int8_rows(w_q)
     scale = torch.rand(n, generator=g, device=dev) * 0.02 + 0.005
     x = torch.randn(m, kdim, generator=g, device=dev).to(bf)
-    for x8 in (True, False):
-        mpad = MP.xread_mpad(m, x8)
-        xr = torch.zeros(mpad, kdim, dtype=torch.int8 if x8 else bf, device=dev)
-        xr[:m] = torch.clamp(torch.round(x.float() * 4.0), -127, 127).to(torch.int8) if x8 else x
-        if x8:
-            library = int_mm_library(xr, torch.ones(mpad, device=dev), w_q, scale, bf)[0]
+    # the bench's shape at both x dtypes (bf16 off the path), then int8 x off
+    # it: mpad 64 (two row groups), N off the word stream's 96-column
+    # blocks, and K = CK = 64 (a 16-row stage a tile)
+    shapes = [(True, m, kdim, n, ck), (False, m, kdim, n, ck), (True, 40, kdim, n, ck),
+              (True, m, kdim, 4160, ck), (True, m, 64, 4128, 64)]
+    for x8, me, ke, ne, cke in shapes:
+        bench = (me, ke, ne) == (m, kdim, n)
+        if bench:
+            w_qe, w_pe, sce, xe = w_q, w_p, scale, x
         else:
-            library = weight_int8pack_library(xr, w_q, scale)
-        for layout, xx in (("stack", MP.tile_stack(xr, ck)), ("dslice", xr)):
+            w_qe = torch.randint(-127, 128, (ke, ne), generator=g, device=dev, dtype=torch.int8)
+            w_pe = Q.pack_int8_rows(w_qe)
+            sce = torch.rand(ne, generator=g, device=dev) * 0.02 + 0.005
+            xe = torch.randn(me, ke, generator=g, device=dev).to(bf)
+        mpad = MP.xread_mpad(me, x8)
+        xr = torch.zeros(mpad, ke, dtype=torch.int8 if x8 else bf, device=dev)
+        xr[:me] = torch.clamp(torch.round(xe.float() * 4.0), -127, 127).to(torch.int8) if x8 else xe
+        if x8:
+            library = int_mm_library(xr, torch.ones(mpad, device=dev), w_qe, sce, bf)[0]
+        else:
+            library = weight_int8pack_library(xr, w_qe, sce)
+        for layout, xx in (("stack", MP.tile_stack(xr, cke)), ("dslice", xr)):
             cases.append(Case(
                 f"K10e xread_matmul({layout})",
-                f"{'int8' if x8 else 'bf16'} M={m} mpad={mpad} K={kdim} N={n}",
-                lambda xx=xx: MP.xread_matmul(xx, w_p, scale),
-                lambda xx=xx: MP.xread_matmul_plain(xx, w_p, scale), 1e-3, 20, x8,
-                xr.numel() * xr.element_size() + kdim * n + n * 4 + mpad * n * 2,
-                {"int8" if x8 else "bf16": 2.0 * mpad * kdim * n}, library=library,
+                f"{'' if bench else 'edge '}{'int8' if x8 else 'bf16'} M={me} mpad={mpad} "
+                f"K={ke} N={ne} CK={cke}",
+                lambda xx=xx, w_pe=w_pe, sce=sce, cke=cke: MP.xread_matmul(xx, w_pe, sce, ck=cke),
+                lambda xx=xx, w_pe=w_pe, sce=sce, cke=cke: MP.xread_matmul_plain(
+                    xx, w_pe, sce, ck=cke), 1e-3, 20 if bench else 5, bench and x8,
+                xr.numel() * xr.element_size() + ke * ne + ne * 4 + mpad * ne * 2,
+                {"int8" if x8 else "bf16": 2.0 * mpad * ke * ne}, library=library,
                 extra=None if x8 else one_bf16_step, exact=x8))
 
     xs = torch.randn(16, 256, generator=g, device=dev).to(bf)
@@ -3055,7 +3097,7 @@ def nvcc_report(log: str) -> list[dict]:
     wgmma kernels (K3 at M > 16, both branches), ``reshape_probe.cu``'s
     product (K10f), ``ms_deform_attn.cu``'s two forms (K6),
     ``stream_matmul.cu``'s slab and byte streams (K10b, K10a) and
-    ``megakernel_probe.cu``'s nibble stream (K10e), one dict a kernel, under the
+    ``megakernel_probe.cu``'s nibble and int8 x-read streams (K10e), one dict a kernel, under the
     kernel's mangled name. K1's count is its
     12-warp launch's cap: its consumers' setmaxnreg does not raise what
     ptxas allocates."""
@@ -3080,7 +3122,8 @@ def nvcc_report(log: str) -> list[dict]:
                     or source.endswith("ms_deform_attn.cu")
                     or (source.endswith("stream_matmul.cu")
                         and ("slab" in name or "byte_stream" in name))
-                    or (source.endswith("megakernel_probe.cu") and "nibble" in name)):
+                    or (source.endswith("megakernel_probe.cu")
+                        and ("nibble" in name or "xread_stream" in name))):
                 out.append(dict(kernel=name, registers=int(m.group(1)),
                                 stack_spill_st_ld_bytes=frame))
             name, frame = None, ""

@@ -1,8 +1,8 @@
 // Hopper building blocks shared by the flash attention kernel (K1,
 // flash_attention.cu), K2's prefill products (W8A8 and W8A16) and the K2
 // and K8 decode streams (int8_matmul.cu), K3's prefill products
-// (int4_matmul.cu) and
-// K10f's product (reshape_probe.cu): mbarriers,
+// (int4_matmul.cu), the fused o-proj + MLP tail (K9, fused_mlp.cu) and
+// K10f's product (reshape_probe.cu), among others: mbarriers,
 // TMA tile loads and the host-side tensor maps they read, cp.async (with an
 // mbarrier arrival, or in commit groups), the warpgroup matrix product
 // (wgmma) with its shared-memory descriptors, and register reallocation
@@ -111,6 +111,19 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
       : "memory");
   return done != 0;
 }
+// whether the barrier's phase `parity` has completed, at once (try_wait may
+// hold the thread a while before it answers no)
+__device__ __forceinline__ bool mbar_test_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   if (mbar_try_wait(addr, parity)) return;
@@ -137,6 +150,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// an L2 policy under which the lines a load brings in are evicted first:
+// for a stream read once (a weight), so that what is read again
+// (activations, scales) stays in L2
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// tma_load_2d under an L2 policy (l2_evict_first)
+__device__ __forceinline__ void tma_load_2d_hint(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                 int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
       : "memory");
 }
 

@@ -35,6 +35,36 @@ def _check_shapes(attn, x_res, norm_scale, wo_p, wo_s, wgu_p, wgu_s, wd_p, wd_s)
         raise ValueError(f"fused_o_mlp: attn {tuple(attn.shape)}, " + ", ".join(bad))
 
 
+# csrc/fused_mlp.cu's shared memory: a block's ring of stages, up to 4,
+# each two TMA boxes of 128 word rows x 32 columns (32 KB) and the x they
+# meet (16 boxes of 64 k x 8 rows an n-tile), and its fold table of the
+# eight consumer warps' partial tiles (n-tiles x 8 rows x 64 columns, f32),
+# their row factors, the barriers passed, mbarriers and the 1024-byte
+# alignment
+_SMEM_PER_BLOCK, _WORD_BYTES, _MAX_STAGES, _CONSUMERS = 232448, 32768, 4, 8
+
+
+def tail_plan(b: int, dq: int, d: int, f: int) -> dict:
+    """The CUDA kernel's work at batch ``b``: ``n_tiles`` (8 batch rows
+    each; 1 up to 8 rows, else 2) of a ``row_groups`` of 16 rows, the ring's
+    ``stages`` and the block's shared-memory bytes ``smem``, and for each
+    phase (``o``, ``gate_up``, ``down``) its (work units, ring stages a
+    unit): units of 32 columns (gate_up: 32 gate and their 32 up columns)
+    times the row groups, over all of K (a stage 256 word rows, gate_up's
+    128 of both). The grid is one block an SM; phases o and down give unit
+    u to block G - 1 - u % G, gate_up to u % G."""
+    n_tiles = 1 if b <= 8 else 2
+    groups = -(-b // 16)
+    stage = _WORD_BYTES + 16 * 8 * n_tiles * 128
+    fixed = 1024 + (_CONSUMERS * 8 * n_tiles * 64 + 2 * _CONSUMERS) * 4 + 16 * _MAX_STAGES
+    stages = min(_MAX_STAGES, (_SMEM_PER_BLOCK - fixed) // stage)
+    return {"n_tiles": n_tiles, "row_groups": groups, "stages": stages,
+            "smem": fixed + stages * stage,
+            "o": (d // 32 * groups, -(-(dq // 4) // 256)),
+            "gate_up": (-(-f // 32) * groups, -(-(d // 4) // 128)),
+            "down": (d // 32 * groups, -(-(f // 4) // 256))}
+
+
 def fused_o_mlp_plain(attn, x_res, norm_scale, wo_p, wo_s, wgu_p, wgu_s, wd_p, wd_s, *,
                       norm_eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch K9 with the TPU kernel's numerics
@@ -66,12 +96,14 @@ def fused_o_mlp(attn, x_res, norm_scale, wo_p, wo_s, wgu_p, wgu_s, wd_p, wd_s, *
     x_res's dtype.
 
     CPU: ``fused_o_mlp_plain``. CUDA: ``csrc/fused_mlp.cu``, one cooperative
-    launch (bf16 or f32 x_res; Dq and F multiples of 16, D of 32); a card
-    that cannot co-schedule the grid raises. With ``phase_ns``, a (5,)
-    int64 CUDA tensor, the kernel also records the card's nanosecond clock
-    at its start, after each of its three grid barriers and at its end
-    (``phase_times_us`` reads them). Counts its launches in
-    ``fused_o_mlp.launches``."""
+    launch of one block an SM (bf16 or f32 x_res; Dq and F multiples of 16,
+    D of 32; ``tail_plan`` gives its work units and ring); a card that
+    cannot co-schedule the grid raises. Its grid barriers share a counter
+    in device memory, so calls must not overlap on two streams. With
+    ``phase_ns``, a (5,) int64 CUDA tensor, the kernel also records the
+    card's nanosecond clock at its start, after each of its three grid
+    barriers and at its end (``phase_times_us`` reads them). Counts its
+    launches in ``fused_o_mlp.launches``."""
     args = (attn, x_res, norm_scale, wo_p, wo_s, wgu_p, wgu_s, wd_p, wd_s)
     _check_shapes(*args)
     if attn.device.type == "cpu":
@@ -99,6 +131,7 @@ def fused_o_mlp(attn, x_res, norm_scale, wo_p, wo_s, wgu_p, wgu_s, wd_p, wd_s, *
     wo_p, wo_s, wgu_p, wgu_s, wd_p, wd_s = (_build.aligned(t) for t in args[3:])
     out = torch.empty(b, d, dtype=x_res.dtype, device=dev)
     x2 = torch.empty(b, d, dtype=torch.float32, device=dev)
+    # h and m hold each 4 k in the kernel's order [0, 2, 1, 3]
     h = torch.empty(b, d, dtype=torch.bfloat16, device=dev)
     m = torch.empty(b, f, dtype=torch.bfloat16, device=dev)
     ssq = torch.empty(d // 32, b, dtype=torch.float32, device=dev)
@@ -119,7 +152,9 @@ def phase_times_us(phase_ns: torch.Tensor) -> dict:
     """A ``phase_ns`` record as microseconds: phase 1 (o-projection), the
     norm, phase 2 (gate_up and SiLU), phase 3 (down and the residual) and
     the whole launch, on block 0's clock (the last to its barrier sets each
-    phase's end; the last block's end closes phase 3)."""
+    phase's end; the last block's end closes phase 3). The weights of a
+    phase start loading before its barrier, so a phase's time is the wait
+    for its last block, not its stream's."""
     t = [int(v) for v in phase_ns.cpu()]
     names = ("phase1_o", "norm", "phase2_gate_up", "phase3_down")
     out = {n: (t[i + 1] - t[i]) / 1e3 for i, n in enumerate(names)}

@@ -19,7 +19,8 @@ a call and GB/s of the weight bytes moved:
   (twice the bytes) with the same eager ops, the library yardstick.
 
 and, from one more K9 call that records the card's clock at its barriers,
-the microseconds of each of its phases. Shapes: the port's ``LlamaConfig``
+the microseconds of each of its phases, after the kernel's plan
+(``tail_plan``: its work units and ring stages a phase). Shapes: the port's ``LlamaConfig``
 (D = Dq = 4096, F = 11008): 152 MB of int8 weights a call. Timing:
 ``timing.scan_ms`` (every call reads more weight bytes than the 50 MB L2
 holds).
@@ -36,7 +37,8 @@ import os
 import torch
 
 from mmor_tpu_torch.config import LlamaConfig
-from mmor_tpu_torch.ops.fused_mlp import fused_o_mlp, fused_o_mlp_plain, phase_times_us
+from mmor_tpu_torch.ops.fused_mlp import (fused_o_mlp, fused_o_mlp_plain, phase_times_us,
+                                          tail_plan)
 from mmor_tpu_torch.ops.quantized_matmul import (int8_matmul_packed, pack_int8_rows,
                                                  quantize_weights, unpack_int8_rows)
 from mmor_tpu_torch.tools.perf.bench_bitcast import w8b_matmul
@@ -128,6 +130,8 @@ def main(device: str | torch.device = "cuda", *, batches: tuple = BATCHES,
     nbytes = weight_bytes(dq, d, f)
     ms, errs = {}, {}
     for b in batches:
+        print(f"k9 plan B={b} (units, stages a unit): " + " ".join(
+            f"{k}={v}" for k, v in tail_plan(b, dq, d, f).items()), flush=True)
         args = (ops[0][:b].contiguous(), ops[1][:b].contiguous(), *ops[2:])
         got, ref = fused_o_mlp(*args).double(), fused_o_mlp_plain(*args).double()
         name = f"k9 B={b} rel_l2 vs plain"

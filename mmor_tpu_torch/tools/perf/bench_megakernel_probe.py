@@ -76,9 +76,15 @@ XREAD_COPIES, NIBBLE_COPIES = 4, 8  # weight copies a scan rotates over (past th
 TINY_BF16 = 1.0
 PARTS = ("xread", "overhead", "nibble", "rowrw")
 SMEM_PER_BLOCK = 232448  # the bytes of shared memory an H100 block can use
-# a staged K-tile's row padding and the kernel's other shared memory, as
-# csrc/megakernel_probe.cu lays it out (warp partials, one unit's sums)
+# bf16 x: a staged K-tile's row padding and the kernel's other shared memory,
+# as csrc/megakernel_probe.cu's probe_kernel lays it out (warp partials, one
+# unit's sums)
 _PAD_BYTES, _FIXED_SMEM = 32, 8 * 32 * 33 * 4 + 32 * 32 * 4
+# int8 x: the word stream's (xr::xread_stream_kernel) stages of three 16 KB
+# word boxes (c: and four 4 KB x boxes of 128 k x 32 rows), b's K-tile of x
+# in those 4 KB boxes, a 12 KB table of a tile's int32 sums, the barriers and
+# the 1024-byte alignment; up to 4 stages, at least 2
+_XR_WORDS, _XR_XBOX, _XR_TSUM, _XR_STAGES = 3 * 16384, 4096, 12288, 4
 
 
 # ------------------------------------------------------------------ xread
@@ -86,6 +92,28 @@ def xread_mpad(m: int, x8: bool) -> int:
     """The script's padded rows: at least 32 and a multiple of 32 for int8
     x, at least 16 and a multiple of 16 for bf16."""
     return max(32, -(-m // 32) * 32) if x8 else max(16, -(-m // 16) * 16)
+
+
+def xread_plan(ck: int, stack: bool) -> dict:
+    """The int8 x-read kernel's plan for K-tiles of ``ck``: ``stage_rows``,
+    the word rows a ring stage holds (the largest of 128, 64, 32, 16 dividing
+    ck / 4, so that a stage never spans two tiles), ``stages`` (as many as
+    fit, up to 4) and the block's shared-memory bytes ``smem``. Raises
+    ValueError for a ck that is not a multiple of 64, or (the tile stack)
+    whose 32-row K-tile and two stages do not fit a block: ck above 3712."""
+    if ck < 64 or ck % 64:
+        raise ValueError(f"xread_matmul: CK {ck} is not a multiple of 64")
+    rows = 128
+    while (ck // 4) % rows:
+        rows //= 2
+    stage = _XR_WORDS + (0 if stack else 4 * _XR_XBOX)
+    fixed = 1024 + (-(-ck // 128) * _XR_XBOX if stack else 0) + _XR_TSUM + 16 * (_XR_STAGES + 1)
+    fit = (SMEM_PER_BLOCK - fixed) // stage
+    if fit < 2:
+        raise ValueError(f"xread_matmul: a staged int8 K-tile of 32 x {ck} and two stages take "
+                         f"{fixed + 2 * stage} bytes of shared memory, more than a block can use")
+    stages = min(fit, _XR_STAGES)
+    return {"stage_rows": rows, "stages": stages, "smem": fixed + stages * stage}
 
 
 def tile_stack(x: torch.Tensor, ck: int) -> torch.Tensor:
@@ -119,11 +147,17 @@ def xread_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor, *,
                  ck: int = CK) -> torch.Tensor:
     """K10e x-read: ``xread_matmul_plain``'s function.
 
-    CPU: ``xread_matmul_plain``. CUDA: ``csrc/megakernel_probe.cu``; a 3-D x
-    (the tile stack) goes through shared memory, a K-tile a block at a time
-    (line b, counted in ``xread_matmul.launches``), a 2-D x is read from L2
-    at every k-step (line c, ``xread_matmul.dslice_launches``). The kernel
-    needs CK % 64 == 0 and N % 32 == 0."""
+    CPU: ``xread_matmul_plain``. CUDA: ``csrc/megakernel_probe.cu``. A 3-D x
+    (the tile stack) goes through shared memory a K-tile a block at a time
+    (line b, counted in ``xread_matmul.launches``); a 2-D x (line c,
+    ``xread_matmul.dslice_launches``) is read a stage at a time (int8 x)
+    or at every k-step (bf16 x). int8 x takes the word stream
+    (``xread_plan``: 96-column blocks over all of K, the words and x by TMA),
+    launched with programmatic dependent launch: it loads its first words
+    before the kernel ahead of it has finished, so ``w_p`` and ``scale`` must
+    not be that kernel's output. bf16 x takes the first form's kernel. Both need CK %
+    64 == 0 and N % 32 == 0; the stack's K-tile must fit a block's shared
+    memory (int8: CK up to 3712, bf16: up to 2944)."""
     if x.dim() == 3:
         n_k, mpad, ck = x.shape
         k = n_k * ck
@@ -147,10 +181,12 @@ def xread_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"xread_matmul: the kernel needs CK % 64 == 0 and N % 32 == 0 "
                          f"(CK {ck}, N {n})")
     stack = x.dim() == 3
-    staged = 32 * (ck * x.element_size() + _PAD_BYTES)
-    if stack and staged + _FIXED_SMEM > SMEM_PER_BLOCK:
+    if x.dtype == torch.int8:
+        xread_plan(ck, stack)
+    elif stack and 32 * (ck * 2 + _PAD_BYTES) + _FIXED_SMEM > SMEM_PER_BLOCK:
         raise ValueError(f"xread_matmul: a staged K-tile of 32 x {ck} {x.dtype} takes "
-                         f"{staged} bytes of shared memory, more than a block can use")
+                         f"{32 * (ck * 2 + _PAD_BYTES)} bytes of shared memory, more than a "
+                         "block can use")
     x, w_p, scale = _build.aligned(x), _build.aligned(w_p), _build.aligned(scale)
     out = torch.empty(mpad, n, dtype=torch.bfloat16, device=x.device)
     err = _build.library().mmor_xread_probe(

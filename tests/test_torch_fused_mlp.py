@@ -114,6 +114,22 @@ def test_fused_o_mlp_matches_jax_cpu_path(b, dtype):
     assert rel_l2(got, ref) <= 2e-3
 
 
+@pytest.mark.parametrize("b,n_tiles,groups,stages,smem", [
+    (1, 1, 1, 4, 214144), (8, 1, 1, 4, 214144), (14, 2, 1, 3, 230528), (17, 2, 2, 3, 230528),
+])
+def test_tail_plan_at_the_7b_tail(b, n_tiles, groups, stages, smem):
+    """The CUDA kernel's plan at the 7B tail (csrc/fused_mlp.cu): 8-row
+    n-tiles of 16-row groups, a ring of stages (32 KB of words and their x)
+    that fits a block, and each phase's units (32 columns, gate_up's 32
+    gate with their 32 up) and ring stages a unit (256 word rows, gate_up's
+    128 of both)."""
+    plan = tfm.tail_plan(b, 4096, 4096, 11008)
+    assert (plan["n_tiles"], plan["row_groups"], plan["stages"]) == (n_tiles, groups, stages)
+    assert plan["smem"] == smem and smem <= 232448
+    assert plan["o"] == (128 * groups, 4) and plan["down"] == (128 * groups, 11)
+    assert plan["gate_up"] == (344 * groups, 8)
+
+
 def test_fused_o_mlp_refuses_mismatched_weights():
     t = [torch.from_numpy(a) for a in inputs(4, "f32")]
     t[5] = t[5][:, :-4]  # gate_up words of 2F - 4 columns

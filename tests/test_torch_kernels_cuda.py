@@ -37,11 +37,15 @@ a multiple of 16 bytes), 32 calls back to back, and a K it refuses; K6's
 two forms bit for bit against the order model of each channel's f32
 operations (``test_torch_deform_sampler.py``) at the serving shape (Lq cut
 to 2,000) and at every edge of its plain-version test; K9 at one row, at
-the 7B tail, above one 16-row tile and above 64 rows, with an f32
-residual, and its refusals; K10c's two modes at ragged shapes; K10d's
+the 7B tail, above one 16-row group and above 64 rows, with an f32
+residual, at K off a ring stage and F off 32, twice back to back at the
+7B tail with its inputs rewritten between the launches (B 1, 8, 14 and
+17), and its refusals; K10c's two modes at ragged shapes; K10d's
 windows that reach outside the map; K10e's x-read at both x layouts
-and widths (two row groups, half a row group, a bf16 tile past shared
-memory refused), tiny, nibble (16 and 48 padded rows, N 64, CK 64 and
+and widths (two row groups, half a row group, N off the 96-column
+blocks, K = CK = 64, the int8 stack's largest tile, each called twice
+back to back; a bf16 and an int8 tile past shared memory refused), tiny,
+nibble (16 and 48 padded rows, N 64, CK 64 and
 576, whose stages hold 8 word rows) and row kernels (both modes, one
 head, one 128-column block), K10f's copies and products at ragged shapes
 (K that the cluster's 16 ranks do not divide, ranks with no k).
@@ -1126,8 +1130,9 @@ K9_BOUND = 1e-3  # chip_smoke.py's
 @pytest.mark.parametrize("b,dq,d,f,res_dtype", [
     (1, 256, 256, 512, torch.bfloat16),
     (14, 4096, 4096, 11008, torch.bfloat16),  # the 7B decode tail
-    (20, 512, 256, 768, torch.float32),       # two 16-row m-tiles, f32 residual
-    (70, 256, 512, 1024, torch.bfloat16),     # five 16-row m-tiles, h chunks over 2 rows
+    (20, 512, 256, 768, torch.float32),       # two 16-row groups, f32 residual
+    (70, 256, 512, 1024, torch.bfloat16),     # five 16-row groups, h chunks over 2 rows
+    (5, 272, 96, 528, torch.bfloat16),        # K off a stage, F off 32: a partial gate/up box
 ])
 def test_fused_o_mlp_kernel(dev, b, dq, d, f, res_dtype):
     """K9 against its plain version, one cooperative launch a call, the same
@@ -1145,6 +1150,27 @@ def test_fused_o_mlp_kernel(dev, b, dq, d, f, res_dtype):
     assert out.dtype == res_dtype and out.shape == (b, d)
     assert torch.equal(out, again)
     assert rel_l2(out, ref) <= K9_BOUND
+
+
+@pytest.mark.parametrize("b", [1, 8, 14, 17])
+def test_fused_o_mlp_kernel_back_to_back(dev, b):
+    """K9 at the 7B tail twice in a row on one stream, the inputs rewritten
+    in place between the launches: each output matches its plain version
+    (the second launch reads none of the first's scratch or activations;
+    its grid barriers take up the counter where the first left it)."""
+    from mmor_tpu_torch.tools.perf.bench_fused_mlp import tail_operands
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    args = list(tail_operands(b, 4096, 4096, 11008, dev, g))
+    attn2, res2 = torch.randn_like(args[0], dtype=torch.float32), args[1].flip(0)
+    ref1 = FM.fused_o_mlp_plain(*args)
+    out1 = FM.fused_o_mlp(*args)
+    args[0].copy_(attn2)
+    args[1].copy_(res2)
+    out2 = FM.fused_o_mlp(*args)
+    ref2 = FM.fused_o_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert rel_l2(out1, ref1) <= K9_BOUND and rel_l2(out2, ref2) <= K9_BOUND
 
 
 def test_fused_o_mlp_kernel_refuses_bad_operands(dev):
@@ -1242,14 +1268,19 @@ def assert_one_bf16_step(out, ref):
 @pytest.mark.parametrize("layout", ["stack", "dslice"])
 @pytest.mark.parametrize("x8,m,k,n,ck", [
     (True, 24, 4096, 11264, 2048),   # bench_megakernel_probe's xread
-    (True, 40, 512, 96, 256),        # two row groups, the second partly padding
+    (True, 40, 512, 96, 256),        # two row groups (mpad 64), the second partly padding
+    (True, 24, 1024, 4160, 512),     # N off the 96-column blocks (a multiple of 32)
+    (True, 24, 64, 4128, 64),        # K = CK = 64: one 16-row stage a tile
+    (True, 24, 7424, 352, 3712),     # the stack's largest tile (two stages), 128 k off a box
     (False, 24, 4096, 11264, 2048),  # BM_MXU8=0: a 128 KB bf16 tile in shared memory
     (False, 5, 1024, 64, 512),       # bf16 mpad 16: half a row group
+    (False, 24, 64, 96, 64),         # bf16 K = CK = 64
 ])
 def test_xread_probe_kernel(dev, layout, x8, m, k, n, ck):
     """K10e x-read against its plain version: int8 x bit for bit, bf16 x
     within one bf16 step at the largest output; each x layout counts its
-    own launches."""
+    own launches; the same output from a second call queued right behind
+    the first (programmatic dependent launch)."""
     g = torch.Generator(device=dev).manual_seed(25)
     w_p = Q.pack_int8_rows(torch.randint(-127, 128, (k, n), generator=g, device=dev,
                                          dtype=torch.int8))
@@ -1262,22 +1293,26 @@ def test_xread_probe_kernel(dev, layout, x8, m, k, n, ck):
     counter = "launches" if layout == "stack" else "dslice_launches"
     before = getattr(MP.xread_matmul, counter)
     out = MP.xread_matmul(xx, w_p, scale, ck=ck)
+    again = MP.xread_matmul(xx, w_p, scale, ck=ck)
     ref = MP.xread_matmul_plain(xx, w_p, scale, ck=ck)
     torch.cuda.synchronize()
-    assert getattr(MP.xread_matmul, counter) == before + 1
+    assert getattr(MP.xread_matmul, counter) == before + 2
     assert out.shape == (mpad, n) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
     if x8:
         assert torch.equal(out, ref)
     else:
         assert_one_bf16_step(out, ref)
 
 
-def test_xread_probe_kernel_refuses_a_tile_past_shared_memory(dev):
-    """A staged bf16 K-tile of 32 x 4096 (256 KB) cannot fit a block."""
-    x = torch.zeros(2, 32, 4096, dtype=torch.bfloat16, device=dev)
-    w_p = torch.zeros(2048, 64, dtype=torch.int32, device=dev)
+@pytest.mark.parametrize("dtype,ck", [(torch.bfloat16, 4096), (torch.int8, 3776)])
+def test_xread_probe_kernel_refuses_a_tile_past_shared_memory(dev, dtype, ck):
+    """A staged K-tile of 32 x 4096 bf16 (256 KB), or of 32 x 3776 int8
+    beside two ring stages, cannot fit a block."""
+    x = torch.zeros(2, 32, ck, dtype=dtype, device=dev)
+    w_p = torch.zeros(ck // 2, 64, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        MP.xread_matmul(x, w_p, torch.ones(64, device=dev), ck=4096)
+        MP.xread_matmul(x, w_p, torch.ones(64, device=dev), ck=ck)
 
 
 @pytest.mark.parametrize("shape", [(16, 256), (3, 8)])

@@ -116,6 +116,31 @@ def test_xread_matches_jax_kernel_bodies(monkeypatch, x8):
             assert_close(got, refs[layout], "bf16")
 
 
+@pytest.mark.parametrize("ck,stack,rows,stages", [
+    (2048, True, 128, 3),   # the bench's stack: a 64 KB K-tile beside three 48 KB stages
+    (2048, False, 128, 3),  # the bench's 2-D x: 64 KB stages with their x boxes
+    (64, True, 16, 4),      # K = CK = 64: a tile of 16 word rows, one stage
+    (64, False, 16, 3),
+    (576, False, 16, 3),    # 144 word rows a tile: 16 divides it, 32 does not
+    (3712, True, 32, 2),    # the stack's largest tile: 29 x boxes beside two stages
+    (3776, False, 16, 3),   # c holds no tile: any CK
+])
+def test_xread_plan(ck, stack, rows, stages):
+    """The int8 x-read kernel's plan (csrc/megakernel_probe.cu's xr::plan):
+    a stage's word rows divide a K-tile's, the ring and the tile fit a
+    block's shared memory."""
+    plan = MP.xread_plan(ck, stack)
+    assert (plan["stage_rows"], plan["stages"]) == (rows, stages)
+    assert (ck // 4) % rows == 0 and plan["smem"] <= MP.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("ck,stack", [(3776, True), (4096, True), (96, False), (32, True)])
+def test_xread_plan_refuses(ck, stack):
+    """A stack's tile too large for two stages beside it, or a CK off 64."""
+    with pytest.raises(ValueError):
+        MP.xread_plan(ck, stack)
+
+
 # --------------------------------------------------------------- overhead
 def test_tiny_matches_jax_kernel_bit_for_bit():
     x = bf16_values(np.random.default_rng(1), (16, 256))

@@ -144,7 +144,30 @@ Phases (each prints its lines; any failure exits non-zero):
     last-position logits against the same model with K2's plain version
     (rel_l2 within a measured rounding floor, the first token on
     clear-margin rows), and, printed only, their top-1 agreement with the
-    W8A8 model (phase 3's).
+    W8A8 model (phase 3's);
+15. training: MM2SG-7B LoRA fine-tuning (r 128, alpha 256, the multimodal
+    modules trained in full), seeded N(0, 0.02) bf16 weights (PTv3's f32),
+    batch 4 built by ``SGTrainDataset`` from the synthetic dataset (prompt
+    bucket 512, doubled to fit; the batch at the 1024 bucket), K1 forward
+    in every attention that has a gradient and its recompute backward: the
+    first step's loss and gradients (rel_l2 by group: the LoRA a and b
+    factors and each trained module) against the same step with K1's plain
+    forward, within LOGITS_FLOOR_FACTOR times the spread that a rounding
+    step of each attention output causes; one warm and TRAIN_STEPS timed
+    steps (ms, tokens/s, peak memory, K1's launches a step), b zero after
+    the first real update (learning rate 0) and nonzero after the second,
+    the base weights unchanged bit for bit, the loss finite; one profiled
+    step (the device's busy share, and where its device time goes: K1's
+    forward, the recompute backward, the LoRA materialisation, the
+    products);
+16. training CLI: ``mmor_tpu_torch.cli.train_mm2sg --preset small
+    --synthetic 2 --steps 3 --batch_size 2 --save_every 3``, then again in
+    the same run directory, which resumes from its checkpoint.
+
+Phase 2 also holds K1 with a gradient at phase 15's LLaMA and pooler
+shapes: its forward bit for bit the no-grad K1 call, its dq, dk, dv bit for
+bit the plain autograd of ``mha_reference``, forward + backward timed
+beside SDPA's.
 
 Each phase prints its wall time. The line before the last is a JSON object
 with one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -157,6 +180,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -257,7 +281,8 @@ KERNELS = {
 # the kernels each path runs (phase 3: int8, phase 5: int4, phase 7:
 # panoptic, phase 9: overlapped int4, phase 10: int8 megakernel, phase 11:
 # overlapped int8 megakernel, phase 12: the perf tools, phase 13: int4 at
-# quant_int8_mxu=False, phase 14: int8 at quant_int8_mxu=False)
+# quant_int8_mxu=False, phase 14: int8 at quant_int8_mxu=False, phase 15:
+# LoRA training)
 PATH_KERNELS = {
     "int8": ("K1 flash_attention", "K2 int8_matmul_packed",
              "K4 decode_attention_packed_stack"),
@@ -282,6 +307,7 @@ PATH_KERNELS = {
                 "K3-w4a16 int4_matmul_packed(w4a16)", "K5 mega_decode_layers"),
     "int8a16": ("K1 flash_attention", "K2-w8a16 int8_matmul_packed(w8a16)",
                 "K4 decode_attention_packed_stack"),
+    "train": ("K1 flash_attention",),
 }
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
@@ -381,6 +407,10 @@ LIBRARY_BOUND = 1e-2
 # (the row probe's acc, K10f's c, d and e) differ only by the order of f32
 # sums
 PROBE_BOUND = 1e-6
+# training (phase 15): batch, timed steps after one warm step; the prompt
+# bucket the batch is taken at (the synthetic prompts run 911-1262 byte
+# tokens, so the default 512 bucket doubles to 1024 or 2048)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_BUCKET = 4, 3, 1024
 # probe_mosaic_reshape's all-ones out_sums, as the JAX script prints them
 # (its kernels in Pallas interpret mode on the CPU;
 # tests/test_torch_megakernel_probe.py holds the port's CPU main to them)
@@ -1890,6 +1920,70 @@ def phase_kernels(dev, summary: dict) -> None:
             if lib_ms is not None:
                 entry["library_ms"] = (entry["library_ms"] or 0.0) + lib_ms
         torch.cuda.empty_cache()
+    k1_grad_cases(dev)
+
+
+def k1_grad_cases(dev) -> None:
+    """K1 with a gradient (``flash_attention`` on inputs that require one)
+    at phase 15's shapes: LLaMA-7B's attention over the 1024-bucket batch
+    spliced to 1604 tokens (B 4, 32 heads, causal, rows left-padded by 113,
+    113, 39 and 38 tokens) and the pooler's (B 4, 8 heads, 4032 view tokens,
+    rows with 4, 1, 4 and 4 of the 7 views present). The forward must be bit
+    for bit the no-grad K1 call and dq, dk, dv bit for bit the plain
+    autograd of ``mha_reference`` on the same inputs (the backward is that
+    recompute); forward + backward is timed beside SDPA's forward +
+    backward on the same inputs and mask, the library yardstick of a
+    hand-written backward, and K1's forward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    A = kernel_modules()[0]
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    llama_seg = torch.ones(4, 1604, dtype=torch.int32, device=dev)
+    for r, pad in enumerate((113, 113, 39, 38)):
+        llama_seg[r, :pad] = 0
+    pooler_seg = torch.zeros(4, 4032, dtype=torch.int32, device=dev)
+    for r, views in enumerate((4, 1, 4, 4)):
+        pooler_seg[r, : views * 576] = 1
+    for name, b, h, s, d, causal, seg in (
+            ("llama_train(4,32,1604,128)causal+leftpad", 4, 32, 1604, 128, True, llama_seg),
+            ("pooler_train(4,8,4032,128)+absent_views", 4, 8, 4032, 128, False, pooler_seg)):
+        q, k, v, gout = (torch.randn(b, h, s, d, generator=g, device=dev).to(bf)
+                         for _ in range(4))
+        kw = dict(causal=causal, segment_ids=seg)
+        with torch.no_grad():
+            fwd = A.flash_attention(q, k, v, **kw)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = A.flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(out, leaves, gout)
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(A.mha_reference(*ref, **kw), ref, gout)
+        torch.cuda.synchronize()
+        fwd_exact = bool(torch.equal(out, fwd))
+        grads_exact = all(bool(torch.equal(a, w)) for a, w in zip(got, want))
+        del fwd, out, got, want, ref
+        mask = _attention_mask(b, s, s, causal, seg, dev)
+
+        def k1_fwd_bwd():
+            o = A.flash_attention(*leaves, **kw)
+            torch.autograd.grad(o, leaves, gout)
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            torch.autograd.grad(o, leaves, gout)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: A.flash_attention(q, k, v, **kw), 3)[0]
+        ms, ahead = time_ms(k1_fwd_bwd, 3)
+        sdpa_ms = time_ms(sdpa_fwd_bwd, 3)[0]
+        say("2 k1-grad", case=name, fwd_bit_exact=fwd_exact, grads_bit_exact=grads_exact,
+            fwd_ms=f"{fwd_ms:.4f}", fwd_bwd_ms=f"{ms:.4f}", sdpa_fwd_bwd_ms=f"{sdpa_ms:.4f}",
+            factor=f"{ms / sdpa_ms:.3f}", host_ahead=ahead)
+        check(fwd_exact, f"K1 with a gradient {name}: forward not the no-grad K1 call")
+        check(grads_exact, f"K1 with a gradient {name}: dq/dk/dv not the plain autograd")
+        del q, k, v, gout, leaves, mask
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 3
@@ -3076,6 +3170,340 @@ def phase_int8_a16_path(dev, preset_name: str = "7b", batch: int = BATCH,
 
 
 # ------------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 15
+@contextlib.contextmanager
+def plain_k1(perturb=None):
+    """Route K1's launches (``attention._flash_forward``, which both the
+    no-grad path and the forward of K1's gradient call) to the plain
+    ``mha_reference``, over chunks of query rows where the f32 scores of one
+    call would pass ``RECOMPUTE_BYTES`` (PTv3's 65536-point clouds); the
+    backward stays the recompute. With a ``torch.Generator`` as
+    ``perturb``, every output is also ``perturbed``."""
+    import torch
+
+    A = kernel_modules()[0]
+    kernel = A._flash_forward
+
+    def plain(q, k, v, q_seg, kv_seg, causal, sm_scale):
+        b, h, sq, _ = q.shape
+        sk = k.shape[2]
+        rows = max(1, A.RECOMPUTE_BYTES // (b * h * sk * 4))
+        out = torch.empty_like(q)
+        for r0 in range(0, sq, rows):
+            r1 = min(sq, r0 + rows)
+            out[:, :, r0:r1] = A.mha_reference(
+                q[:, :, r0:r1], k, v, causal=causal, segment_ids=q_seg[:, r0:r1],
+                kv_segment_ids=kv_seg, sm_scale=sm_scale, causal_offset=sk - sq + r0)
+        return perturbed(out, perturb)
+
+    A._flash_forward = plain
+    try:
+        yield
+    finally:
+        A._flash_forward = kernel
+
+
+def train_groups(grads: dict) -> dict:
+    """Names by the group phase 15 compares: the supervised tokens' NLLs
+    (``loss/tokens``), the LoRA a and b factors, and each trained module."""
+    groups: dict = {}
+    for name in grads:
+        key = ("lora_" + name.rsplit("/", 1)[-1] if name.startswith("lora/")
+               else name.replace("/", "_") if name.startswith("loss/")
+               else name.removeprefix("trainable/").split(".")[0])
+        groups.setdefault(key, []).append(name)
+    return groups
+
+
+def group_rel_l2(got: dict, ref: dict, names) -> float:
+    """rel_l2 over the named tensors taken together (0 where both are 0)."""
+    diff = sum(float((got[n].double() - ref[n].double()).pow(2).sum()) for n in names)
+    norm = sum(float(ref[n].double().pow(2).sum()) for n in names)
+    return 0.0 if diff == 0 else (diff / norm) ** 0.5 if norm else float("inf")
+
+
+def weights_digest(tensors) -> list[int]:
+    """A position-weighted sum of each tensor's raw 16- or 32-bit words: any
+    change of a bit changes it (the base weights' bit-for-bit check, without
+    a second copy of 13.5 GB)."""
+    import torch
+
+    out = []
+    for t in tensors:
+        words = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        pos = torch.arange(words.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+        out.append(int((words.to(torch.int64) * pos).sum()))
+    return out
+
+
+def train_profile(dev, fn, profile_dir: str | None) -> dict:
+    """One call of ``fn`` (a training step) under torch.profiler: the
+    device's busy time (the union of its kernels' intervals) and busy share
+    of the host's wall, and device ms by part: K1's forward (its two kernels
+    by name), the recompute backward and the LoRA materialisation (the
+    kernels under their ``record_function`` ranges) and the products (the
+    kernels whose names say gemm; those of the recompute included). With
+    ``profile_dir``, the per-kernel table goes to ``train_step.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        sync(dev)
+        wall_us = (time.perf_counter() - t) * 1e6
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_time": "not_measured(no_device_events)"}
+    busy = union_us((e.time_range.start, e.time_range.end) for e in kernels)
+
+    def named(*frags):
+        return sum(e.time_range.elapsed_us() for e in kernels
+                   if any(f in e.name.lower() for f in frags))
+
+    def ranged(label):
+        return sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+                   for e in events if e.name == label)
+
+    parts = {"k1_forward": named("flash_fwd_kernel", "seg_tiles_kernel"),
+             "k1_recompute_backward": ranged("mmor::k1_recompute_backward"),
+             "lora_materialise_forward": ranged("mmor::lora_apply"),
+             "gemm_kernels": named("gemm", "xmma", "cutlass")}
+    if profile_dir:
+        by_kernel: dict = {}
+        for e in kernels:
+            total, count = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, "train_step.txt"), "w") as f:
+            f.write(f"wall_us={wall_us:.1f} device_busy_union_us={busy:.1f}\n")
+            for kname, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+                f.write(f"{us:12.1f} us {n:7d} x  {kname}\n")
+    out = {"wall_ms": f"{wall_us / 1e3:.3f}", "device_busy_ms": f"{busy / 1e3:.3f}",
+           "busy_share": f"{busy / wall_us:.4f}", "kernels": len(kernels)}
+    out.update({f"{k}_ms": f"{v / 1e3:.3f}" for k, v in parts.items()})
+    return out
+
+
+def phase_train(dev, profile_dir: str | None = None) -> dict:
+    """MM2SG-7B LoRA training (see the module docstring, phase 15); returns
+    the launch counts of the timed steps."""
+    import torch
+
+    # the step's transient blocks (score tensors of 1.2-1.9 GiB, weight
+    # gradients) left 23 GiB of the caching allocator's segments unusable
+    # at 78.7 GiB in use; expandable segments map what they need
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _train_steps(dev, profile_dir)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def _train_steps(dev, profile_dir: str | None) -> dict:
+    import argparse as _argparse
+    import dataclasses
+    import random
+
+    import torch
+    from torch.func import functional_call
+
+    from mmor_tpu_torch.cli.common import init_params
+    from mmor_tpu_torch.cli.train_mm2sg import load_samples, to_device
+    from mmor_tpu_torch.config import preset
+    from mmor_tpu_torch.data.sg_train_data import SGTrainDataConfig, SGTrainDataset
+    from mmor_tpu_torch.inference import ByteTokenizer
+    from mmor_tpu_torch.models.mm2sg import MM2SG
+    from mmor_tpu_torch.sg.prompts import IGNORE_INDEX
+    from mmor_tpu_torch.train import trainer as T
+    from mmor_tpu_torch.train.lora import LoraConfig, apply_lora, count_lora_params
+    from mmor_tpu_torch.train.losses import token_weighted_ce
+
+    phase = "15 train"
+    t0 = time.perf_counter()
+    cfg = preset("7b")
+    with torch.device(dev):
+        model = MM2SG(cfg)
+    init_params(model, 0)
+    samples = load_samples(_argparse.Namespace(synthetic=2))
+    data = SGTrainDataset(samples, ByteTokenizer(), cfg, SGTrainDataConfig(),
+                          rng=random.Random(42))
+    batches = list(data.grouped_batches(TRAIN_BATCH))
+    buckets = [b["input_ids"].shape[1] for b in batches]
+    batch = to_device(batches[buckets.index(TRAIN_BUCKET)], dev)
+    tx, lora_cfg = T.make_optimizer(T.TrainConfig()), LoraConfig()
+    step, state = T.make_lora_train_step(model, tx, lora_cfg)
+    base = [p for n, p in model.named_parameters() if not p.requires_grad]
+    digest = weights_digest(base)
+    t_out = TRAIN_BUCKET + cfg.num_multimodal_tokens - 1
+    tokens = TRAIN_BATCH * t_out
+    sync(dev)
+    say(phase, step="setup", seconds=f"{time.perf_counter() - t0:.2f}", buckets=buckets,
+        batch=TRAIN_BATCH, bucket=TRAIN_BUCKET, spliced_tokens=t_out,
+        real_tokens=int(batch["attention_mask"].sum()),
+        supervised_tokens=int((batch["labels"] != -100).sum()),
+        modalities="+".join(k for k in ("pc_points", "audio_embedding", "segmasks")
+                            if k in batch),
+        lora_params=count_lora_params(state["lora"]),
+        trainable_params=sum(p.numel() for p in state["trainable"].values()),
+        frozen_params=sum(p.numel() for p in base))
+
+    # the first step's loss and gradients with K1, with its plain forward,
+    # and with the plain forward's outputs moved by a rounding step (two
+    # seeds; the larger spread is the floor). The loss is held as the vector
+    # of its supervised tokens' NLLs: a scalar's two spreads are single
+    # random draws, a vector's rel_l2 is not
+    tree = T.optimizer_tree(state)
+    params = dict(model.named_parameters())
+
+    def forward():
+        # step.loss_fn's computation, with the tokens' NLLs kept; the
+        # effective weights and logits go out of scope before the backward
+        eff = apply_lora(lora_cfg, {n: params[n] for n in state["lora"]}, state["lora"])
+        args, kwargs = T.model_inputs(batch)
+        logits, labels, _ = functional_call(model, eff, args, kwargs)
+        with torch.no_grad():
+            shift = labels[:, 1:]
+            keep = shift != IGNORE_INDEX
+            logp = torch.log_softmax(logits[:, :-1][keep].float(), dim=-1)
+            nll = -logp.gather(-1, shift[keep].long()[:, None])[:, 0]
+        return token_weighted_ce(logits, labels), nll
+
+    def loss_and_grads():
+        loss, nll = forward()
+        grads = T.gradients(loss, tree)
+        grads["loss/tokens"] = nll
+        return float(loss.detach()), grads
+
+    with plain_k1():
+        loss_p, g_p = loss_and_grads()
+    reset_launch_counts()
+    loss_k, g_k = loss_and_grads()
+    check(launch_counts()["K1 flash_attention"] > 0, "K1 did not run in the training step")
+    groups = train_groups(g_p)
+    err = {k: group_rel_l2(g_k, g_p, names) for k, names in groups.items()}
+    del g_k
+    floor = dict.fromkeys(groups, 0.0)
+    for seed in (1, 2):
+        with plain_k1(perturb=torch.Generator(device=dev).manual_seed(seed)):
+            g_n = loss_and_grads()[1]
+        for k, names in groups.items():
+            floor[k] = max(floor[k], group_rel_l2(g_n, g_p, names))
+        del g_n
+    say(phase, step="k1-vs-plain-first-step", loss=f"{loss_k:.6f}", plain_loss=f"{loss_p:.6f}",
+        **{f"{k}_rel_l2": f"{v:.3e}" for k, v in err.items()},
+        **{f"{k}_floor": f"{v:.3e}" for k, v in floor.items()})
+    check(math.isfinite(loss_k), "non-finite loss")
+    for k in groups:
+        check(err[k] <= LOGITS_FLOOR_FACTOR * floor[k],
+              f"first-step {k} rel_l2 {err[k]:.3e} > {LOGITS_FLOOR_FACTOR} x {floor[k]:.3e}")
+    del g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one warm step (the first real update, at learning rate 0), then the
+    # timed ones
+    b_factors = [ab["b"] for ab in state["lora"].values()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t = time.perf_counter()
+    state, metrics = step(state, batch)
+    sync(dev)
+    warm_s = time.perf_counter() - t
+    b_zero = not any(bool(b.any()) for b in b_factors)
+    say(phase, step="warm", ms=f"{warm_s * 1e3:.1f}", loss=f"{float(metrics['loss']):.6f}",
+        grad_norm=f"{float(metrics['grad_norm']):.4f}", b_zero_after_first_update=b_zero)
+    check(b_zero, "b moved at the first real update, whose learning rate is 0")
+    reset_launch_counts()
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        sync(dev)
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            b_moved = all(bool(b.any()) for b in b_factors)
+        say(phase, step=f"run{i + 1}", ms=f"{step_ms[-1]:.1f}", loss=f"{losses[-1]:.6f}",
+            grad_norm=f"{float(metrics['grad_norm']):.4f}",
+            tokens_per_s=f"{tokens / step_ms[-1] * 1e3:.1f}")
+    counts = {k: v for k, v in launch_counts().items() if k in PATH_KERNELS["train"]}
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean_ms = sum(step_ms) / len(step_ms)
+    say(phase, step="launches", steps=TRAIN_STEPS, mean_ms=f"{mean_ms:.1f}",
+        tokens_per_s=f"{tokens / mean_ms * 1e3:.1f}", peak_mem_bytes=peak,
+        peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+        k1_launches_per_step=f"{counts['K1 flash_attention'] / TRAIN_STEPS:.1f}",
+        **{k.split()[0]: v for k, v in counts.items()})
+    for name, n in counts.items():
+        check(n > 0, f"{name} was not launched on the train path")
+    check(b_moved, "some b factor is still 0 after the second real update")
+    check(all(map(math.isfinite, losses)), f"non-finite loss {losses}")
+    check(weights_digest(base) == digest, "a base weight changed")
+    check(all(p.grad is None for p in model.parameters()), "a parameter holds a .grad")
+
+    prof = train_profile(dev, lambda: step(state, batch), profile_dir)
+    say(phase, step="profile", **prof)
+
+    # the other batch, at the 2048 bucket, with LLaMA's blocks recomputed in
+    # the backward (LlamaConfig.remat, the JAX package's nn.remat)
+    if 2 * TRAIN_BUCKET in buckets:
+        big = to_device(batches[buckets.index(2 * TRAIN_BUCKET)], dev)
+        lm = model.language_model
+        lm.cfg = dataclasses.replace(lm.cfg, remat=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(state, big)  # warm (the new shapes)
+        sync(dev)
+        t = time.perf_counter()
+        state, metrics = step(state, big)
+        sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        big_tokens = TRAIN_BATCH * (2 * TRAIN_BUCKET + cfg.num_multimodal_tokens - 1)
+        say(phase, step="remat-2048", ms=f"{ms:.1f}", loss=f"{float(metrics['loss']):.6f}",
+            tokens_per_s=f"{big_tokens / ms * 1e3:.1f}",
+            peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+        check(math.isfinite(float(metrics["loss"])), "non-finite loss at the 2048 bucket")
+        lm.cfg = dataclasses.replace(lm.cfg, remat=False)
+        del big
+    say(phase, step="checks", base_unchanged=True, b_nonzero_after_second_update=True,
+        loss_finite=True)
+    del state, step, model, batch
+    return counts
+
+
+def phase_train_cli(dev) -> dict:
+    """``train_mm2sg`` as a user runs it, on the card, twice in one run
+    directory: the second run resumes from the first's checkpoint."""
+    import tempfile
+
+    from mmor_tpu_torch.cli import train_mm2sg
+
+    run_dir = tempfile.mkdtemp(prefix="mmor_train_run_")
+    args = ["--preset", "small", "--synthetic", "2", "--steps", "3", "--batch_size", "2",
+            "--save_every", "3", "--run_dir", run_dir, "--device", dev.type]
+    t = time.perf_counter()
+    first = train_mm2sg.main(args)
+    t1 = time.perf_counter() - t
+    saved = os.path.isdir(os.path.join(run_dir, "checkpoint-3"))
+    again = train_mm2sg.main(args)
+    say("16 train-cli", seconds=f"{t1:.2f}", steps=first["step"],
+        loss=f"{first.get('loss', float('nan')):.6f}",
+        grad_norm=f"{first.get('grad_norm', float('nan')):.4f}", checkpoint_saved=saved,
+        resumed_from=os.path.basename(again["initialized_from"] or "none"),
+        resumed_step=again["start_step"])
+    check(first["step"] == 3 and saved, "the CLI did not train 3 steps and save")
+    check(math.isfinite(first.get("loss", float("nan"))), "non-finite CLI loss")
+    check(again["initialized_from"] is not None and again["start_step"] == 3,
+          "the second run did not resume from checkpoint-3")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return first
+
+
 def _build_phase(build) -> None:
     path, secs = build.build()
     build.library()
@@ -3141,11 +3569,11 @@ def nvcc_report(log: str) -> list[dict]:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    p.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                    help="comma-separated subset of phases to run")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="phases 3, 5, 7, 9, 10, 11 and 13 also write per-kernel device "
-                        "time tables to DIR")
+                   help="phases 3, 5, 7, 9, 10, 11, 13 and 15 also write per-kernel "
+                        "device time tables to DIR")
     args = p.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
 
@@ -3211,6 +3639,8 @@ def main(argv=None) -> int:
         12: ("perf", lambda: phase_perf_tools(dev)),
         13: ("int4a16", lambda: phase_a16_path(dev, profile_dir=prof)),
         14: ("int8a16", lambda: phase_int8_a16_path(dev)),
+        15: ("train", lambda: phase_train(dev, profile_dir=prof)),
+        16: (None, lambda: phase_train_cli(dev)),
     }
     t_start = time.perf_counter()
     try:

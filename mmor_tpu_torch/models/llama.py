@@ -29,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mmor_tpu_torch.config import LlamaConfig
@@ -263,8 +264,15 @@ class LlamaModel(nn.Module):
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         if cache is None:
             segment_ids = attention_mask.to(torch.int32)
+            # ``remat`` (the JAX package's nn.remat of the block): under
+            # autograd each block keeps only its input and recomputes itself
+            # in the backward
+            remat = cfg.remat and torch.is_grad_enabled() and prefill_cache_buffers is None
             for i, block in enumerate(self.blocks):
-                x = block(x, rope, segment_ids, None, 0, prefill_cache_buffers, i)
+                if remat:
+                    x = _remat_block(block, x, rope, segment_ids, i)
+                else:
+                    x = block(x, rope, segment_ids, None, 0, prefill_cache_buffers, i)
             new_cache = prefill_cache_buffers
         else:
             wp = cache["write_pos"]
@@ -278,6 +286,20 @@ class LlamaModel(nn.Module):
             x = x[:, -1:]
         logits = self.lm_head(self.final_norm(x))
         return logits.float(), new_cache
+
+
+def _remat_block(block: LlamaBlock, x, rope, segment_ids, layer_idx: int) -> torch.Tensor:
+    """One prefill block under ``torch.utils.checkpoint``. The block's
+    weights go in as inputs, so that the recompute in the backward runs on
+    the tensors the forward used, also when a caller swapped them in
+    (``torch.func.functional_call``, as LoRA training does)."""
+    names, weights = zip(*block.named_parameters())
+
+    def run(x, *ws):
+        return torch.func.functional_call(
+            block, dict(zip(names, ws)), (x, rope, segment_ids, None, 0, None, layer_idx))
+
+    return torch.utils.checkpoint.checkpoint(run, x, *weights, use_reentrant=False)
 
 
 def alloc_kv_buffers(cfg: LlamaConfig, batch: int, max_len: int,

@@ -1,5 +1,6 @@
-"""Attention ops: K1 flash attention, the plain reference, K4 decode
-attention against an int8 KV cache stack and K7 against one layer's cache.
+"""Attention ops: K1 flash attention and its gradient, the plain reference,
+K4 decode attention against an int8 KV cache stack and K7 against one
+layer's cache.
 
 Counterpart of ``mmor_tpu/ops/attention.py``. Activations are
 (batch, heads, seq, head_dim); segment ids are (batch, seq) int32 and
@@ -17,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from mmor_tpu_torch.ops import _build
 
@@ -42,8 +44,12 @@ def mha_reference(
     segment_ids: torch.Tensor | None = None,
     kv_segment_ids: torch.Tensor | None = None,
     sm_scale: float | None = None,
+    causal_offset: int | None = None,
 ) -> torch.Tensor:
-    """Plain attention; the numerics oracle for K1 and its CPU path."""
+    """Plain attention; the numerics oracle for K1 and its CPU path.
+    ``causal_offset`` (default Sk - Sq): under ``causal``, key j is visible
+    to query i iff j <= i + causal_offset (a chunk of query rows starting at
+    row r0 of a longer block passes that block's offset plus r0)."""
     sq, head_dim = q.shape[-2:]
     sk = k.shape[-2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(head_dim)
@@ -51,7 +57,8 @@ def mha_reference(
     mask = None
     if causal:
         ones = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-        mask = torch.tril(ones, diagonal=sk - sq)[None, None]
+        offset = sk - sq if causal_offset is None else causal_offset
+        mask = torch.tril(ones, diagonal=offset)[None, None]
     if segment_ids is not None:
         kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
         seg_mask = segment_ids[:, None, :, None] == kv_seg[:, None, None, :]
@@ -131,18 +138,20 @@ def flash_attention(
     kv_segment_ids: torch.Tensor | None = None,
     sm_scale: float | None = None,
 ) -> torch.Tensor:
-    """K1 flash attention (forward). q: (B, H, Sq, D); k/v: (B, H, Sk, D);
+    """K1 flash attention. q: (B, H, Sq, D); k/v: (B, H, Sk, D);
     ``segment_ids`` (B, Sq) int32 for the queries and, optionally, (B, Sk)
     for the keys. ``causal`` composes with segments; key j is visible to
     query i iff j <= i + Sk - Sq, as in ``mha_reference``.
 
-    CPU: ``mha_reference``. CUDA: the ``csrc/flash_attention.cu`` kernel on
-    bf16 inputs with head_dim 16, 32, 64 or 128, which visits only the key
-    tiles ``flash_tiles`` keeps (a prologue kernel computes the tiles'
+    CPU: ``mha_reference``, differentiated by plain autograd (the JAX
+    package's non-TPU branch). CUDA: the ``csrc/flash_attention.cu`` kernel
+    on bf16 inputs with head_dim 16, 32, 64 or 128, which visits only the
+    key tiles ``flash_tiles`` keeps (a prologue kernel computes the tiles'
     ``segment_tiles``). A query row whose every key is masked comes out 0
-    from the kernel (``mha_reference`` averages V there); no caller on the
-    serving path produces such a row. The gradient comes with the training
-    slice: the kernel path raises on inputs that require one.
+    from the kernel (``mha_reference`` averages V there). On inputs that
+    require a gradient the kernel is the forward of an autograd function
+    whose backward is ``flash_attention_bwd``: the JAX package's custom VJP,
+    a recompute through ``mha_reference``.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -151,10 +160,6 @@ def flash_attention(
                              kv_segment_ids=kv_segment_ids, sm_scale=sm_scale)
     _require_cuda_inputs("flash_attention", {"q": q, "k": k, "v": v},
                          torch.bfloat16)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet (training slice)")
     batch, heads, sq, head_dim = q.shape
     sk = k.shape[-2]
     if k.shape != (batch, heads, sk, head_dim) or v.shape != k.shape:
@@ -166,6 +171,22 @@ def flash_attention(
         raise ValueError("flash_attention: segment ids must be (B, Sq) / (B, Sk)")
     _require_cuda_inputs("flash_attention", {"segment_ids": q_seg,
                                              "kv_segment_ids": kv_seg}, torch.int32)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        masked = segment_ids is not None or kv_segment_ids is not None
+        return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal),
+                                     float(sm_scale), masked)
+    return _flash_forward(q, k, v, q_seg, kv_seg, bool(causal), float(sm_scale))
+
+
+flash_attention.launches = 0
+
+
+def _flash_forward(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float) -> torch.Tensor:
+    """One launch of K1 on checked CUDA inputs (``flash_attention``'s);
+    counted in ``flash_attention.launches``."""
+    batch, heads, sq, head_dim = q.shape
+    sk = k.shape[-2]
     q_seg, kv_seg = _build.aligned(q_seg), _build.aligned(kv_seg)
     # scratch: the tiles' segment_tiles (the kernel's prologue fills them)
     # and the counter its blocks take their items from
@@ -184,7 +205,95 @@ def flash_attention(
     return out
 
 
-flash_attention.launches = 0
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward (``_flash_forward``, looked up at call time), the
+    recompute backward ``flash_attention_bwd``; saves q, k, v and the two
+    segment-id tensors, as the JAX package's ``_flash_fwd`` does. Without
+    segment ids from the caller (``masked`` false) the recompute takes none
+    either, the plain version's call on the same arguments."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, sm_scale, masked):
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg)
+        ctx.causal, ctx.sm_scale, ctx.masked = causal, sm_scale, masked
+        return _flash_forward(q, k, v, q_seg, kv_seg, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_seg, kv_seg = ctx.saved_tensors
+        if not ctx.masked:
+            q_seg = kv_seg = None
+        with torch.profiler.record_function("mmor::k1_recompute_backward"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, ctx.causal,
+                                             ctx.sm_scale, g)
+        return dq, dk, dv, None, None, None, None, None
+
+
+# the f32 scores one recompute of K1's backward may hold at once; a larger
+# problem (PTv3's 65536-point clouds) recomputes in chunks of query rows
+RECOMPUTE_BYTES = 4 << 30
+
+
+def rows_with_keys(q_seg: torch.Tensor, kv_seg: torch.Tensor, causal: bool,
+                   sk: int) -> torch.Tensor:
+    """(B, Sq) bool: the query rows that see at least one key, for (B, Sq)
+    and (B, Sk) segment ids: a key of the row's id exists (under ``causal``,
+    the first such key lies at or below the diagonal j <= i + Sk - Sq)."""
+    sq = q_seg.shape[1]
+    ids, order = torch.sort(kv_seg, dim=1, stable=True)
+    pos = torch.searchsorted(ids, q_seg.contiguous()).clamp(max=sk - 1)
+    seen = torch.gather(ids, 1, pos) == q_seg
+    if causal:  # the stable sort puts each id's first key first among its equals
+        first = torch.gather(order, 1, pos)
+        seen &= first <= torch.arange(sq, device=q_seg.device)[None] + (sk - sq)
+    return seen
+
+
+def flash_attention_bwd(q, k, v, q_seg, kv_seg, causal: bool, sm_scale: float,
+                        g: torch.Tensor, max_bytes: int = RECOMPUTE_BYTES):
+    """K1's gradient, taken as the JAX package takes it
+    (``mmor_tpu/ops/attention.py::_flash_bwd``): (dq, dk, dv) by autograd of
+    a recompute through ``mha_reference`` on the saved inputs. A query row
+    with no visible key, which K1 stores as 0, takes a zero incoming
+    gradient, so that forward and backward describe one function: its dq is
+    0 and it adds nothing to dk or dv. Up to ``max_bytes`` of f32 scores the
+    recompute is one ``mha_reference`` call, bit for bit its plain autograd;
+    above, it runs over chunks of query rows (dk and dv summed in f32 over
+    the chunks), and a chunk whose incoming gradient is all zero, whose
+    contribution is exactly zero, is skipped. ``q_seg``/``kv_seg`` are
+    ``mha_reference``'s segment ids (either may be None)."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[-2]
+    ids = flash_segments(b, sq, sk, q_seg, kv_seg, q.device)
+    g = torch.where(rows_with_keys(*ids, causal, sk)[:, None, :, None], g, 0)
+    kw = dict(causal=causal, kv_segment_ids=kv_seg, sm_scale=sm_scale)
+    with torch.enable_grad():
+        if b * h * sq * sk * 4 <= max_bytes:
+            q_, k_, v_ = (t.detach().requires_grad_() for t in (q, k, v))
+            out = mha_reference(q_, k_, v_, segment_ids=q_seg, **kw)
+            return torch.autograd.grad(out, (q_, k_, v_), g)
+        rows = max(1, max_bytes // (b * h * sk * 4))
+        n_chunks = -(-sq // rows)
+        live = F.pad(g.ne(0).any(-1).any(1).any(0), (0, n_chunks * rows - sq))
+        dq = torch.zeros_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for i, chunk_live in enumerate(live.view(n_chunks, rows).any(1).tolist()):
+            if not chunk_live:
+                continue
+            r0, r1 = i * rows, min(sq, (i + 1) * rows)
+            q_ = q[:, :, r0:r1].detach().requires_grad_()
+            k_, v_ = k.detach().requires_grad_(), v.detach().requires_grad_()
+            rows_seg = None if q_seg is None else q_seg[:, r0:r1]
+            if kv_seg is None and q_seg is not None:  # the query ids key the keys
+                kw["kv_segment_ids"] = q_seg
+            out = mha_reference(q_, k_, v_, segment_ids=rows_seg,
+                                causal_offset=sk - sq + r0, **kw)
+            gq, gk, gv = torch.autograd.grad(out, (q_, k_, v_), g[:, :, r0:r1])
+            dq[:, :, r0:r1] = gq
+            dk += gk
+            dv += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

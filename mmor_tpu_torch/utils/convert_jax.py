@@ -21,6 +21,12 @@ kernels as above, every other leaf (norm scales and biases, FrozenBN,
 ``level_embed``, ``query_feat``, ``query_embed``) as it is; the offline
 refiner's subtree is skipped (not ported).
 
+``convert_lora`` maps the JAX package's LoRA factors
+(``mmor_tpu.train.lora.init_lora_params``: flat path keys, the scanned
+decoder's factors stacked a (L, r, in), b (L, out, r)) onto the port's
+per-layer weight names; the same function carries a gradient of those
+factors across.
+
 ``mega_cache_from_jax`` builds the port's int4 decode cache from the values
 of a JAX megakernel cache (for tests; the caller unpacks JAX's words).
 """
@@ -110,6 +116,31 @@ def convert_llama(lm_params: dict) -> dict[str, torch.Tensor]:
     prefix = "language_model."
     full = convert_mm2sg({"language_model": inner})
     return {k[len(prefix):]: v for k, v in full.items()}
+
+
+def convert_lora(lora: dict) -> dict[str, dict[str, torch.Tensor]]:
+    """JAX LoRA factors {"params/.../kernel": {"a", "b"}} -> {port weight
+    name: {"a" (r, in), "b" (out, r)}}, one entry a layer for the scanned
+    decoder blocks. The factors' layouts already suit the port's (out, in)
+    weights: JAX's delta a^T b^T is the transpose of b @ a."""
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for path, ab in lora.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        if parts[-1] != "kernel":
+            raise ValueError(f"not a LoRA target kernel: {path}")
+        p = "/".join(parts[:-1] + ["weight"])
+        a, b = np.asarray(ab["a"]), np.asarray(ab["b"])
+        scanned = next((s for s in _SCANNED if p.startswith(s + "/")), None)
+        if scanned:
+            rest = p[len(scanned) + 1:]
+            for i in range(a.shape[0]):
+                out[_torch_key(f"{scanned}/{i}/{rest}")] = {"a": _to_torch(a[i]),
+                                                            "b": _to_torch(b[i])}
+        else:
+            out[_torch_key(p)] = {"a": _to_torch(a), "b": _to_torch(b)}
+    return out
 
 
 def convert_dvis(params: dict) -> dict[str, torch.Tensor]:

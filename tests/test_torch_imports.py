@@ -50,6 +50,9 @@ def test_port_imports_no_jax():
     assert "mmor_tpu_torch.tools.perf.bench_megakernel_probe" in modules
     assert "mmor_tpu_torch.tools.perf.probe_mosaic_reshape" in modules
     assert "mmor_tpu_torch.tools.perf.bench_prefill_matmul" in modules
+    for name in ("train.lora", "train.losses", "train.trainer", "data.sg_train_data",
+                 "data.llava_json", "utils.checkpoint", "cli.train_mm2sg"):
+        assert f"mmor_tpu_torch.{name}" in modules
     _assert_imports_clean(modules)
 
 

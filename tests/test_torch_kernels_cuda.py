@@ -76,7 +76,10 @@ bf16 step apart at near-ties) and bit-identical from call to call; K10c
 mxu8 bit-exact (K2's kernels, K8's rule), bf16 as K10b; K10d bit-exact;
 K10e x-read int8 and tiny bit-exact, x-read bf16 and nibble within one bf16
 step at the largest output, the row probe rel_l2 <= 1e-6; K10f copies
-bit-exact, products rel_l2 <= 1e-6.
+bit-exact, products rel_l2 <= 1e-6. K1's gradient (the JAX package's
+recompute through mha_reference): its forward bit for bit the no-grad
+kernel call and dq, dk, dv bit for bit the plain autograd, at ragged
+shapes, each mask kind and a row with no visible key.
 """
 
 import functools
@@ -250,12 +253,102 @@ def test_flash_attention_rows_without_keys_are_zero_at_each_head_dim(dev, d):
 
 
 def test_flash_attention_refuses_gradients_and_cpu_segments(dev):
-    q = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
+    """The gradient's forward is K1, so it takes bf16 only: f32 inputs that
+    require a gradient are refused, as the kernel refuses them; CPU segment
+    ids with CUDA activations too."""
+    q = torch.zeros(1, 1, 8, 16, dtype=torch.float32, device=dev, requires_grad=True)
+    with pytest.raises(TypeError):
         A.flash_attention(q, q.detach(), q.detach())
-    x = q.detach()
+    x = q.detach().bfloat16()
     with pytest.raises(ValueError):
         A.flash_attention(x, x, x, segment_ids=torch.zeros(1, 8, dtype=torch.int32))
+
+
+def _grad_inputs(g, b, h, sq, sk, d, dev):
+    q, k, v = (randn(g, b, h, s, d, dev=dev) for s in (sq, sk, sk))
+    return q, k, v, randn(g, b, h, sq, d, dev=dev)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,kind", [
+    (3, 4, 191, 191, 128, "causal_leftpad"),  # ragged against the 128-row tiles
+    (2, 2, 300, 300, 64, "absent_views"),
+    (2, 3, 700, 700, 16, "patches_tail"),     # PTv3's patches with the -1 tail
+    (2, 2, 77, 130, 32, "unsorted"),          # Sq != Sk, separate key ids
+    (2, 2, 65, 300, 64, "causal_short_q"),
+    (1, 2, 100, 100, 32, "none"),             # no segment ids at all
+])
+def test_flash_attention_gradient_function(dev, b, h, sq, sk, d, kind):
+    """K1 with a gradient: the forward bit for bit the no-grad K1 call, and
+    dq, dk, dv bit for bit the plain autograd of mha_reference on the same
+    inputs (the JAX package's custom VJP); the launch counted once."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, gout = _grad_inputs(g, b, h, sq, sk, d, dev)
+    if kind == "none":
+        causal, seg, kv_seg = False, None, None
+    else:
+        causal, seg, kv_seg = _segments(kind, b, sq, sk, g, dev)
+        if kind == "unsorted":
+            kv_seg[:, :sq] = seg  # every row sees a key: the plain version averages V otherwise
+    kw = dict(causal=causal, segment_ids=seg, kv_segment_ids=kv_seg)
+    with torch.no_grad():
+        plain_fwd = A.flash_attention(q, k, v, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = A.flash_attention.launches
+    out = A.flash_attention(*leaves, **kw)
+    assert A.flash_attention.launches == before + 1 and out.requires_grad
+    got = torch.autograd.grad(out, leaves, gout)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(A.mha_reference(*ref_leaves, **kw), ref_leaves, gout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_fwd)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, w), name
+
+
+def test_flash_attention_gradient_rows_without_keys(dev):
+    """A row with no visible key (K1 stores 0 there): zero dq, and dk, dv as
+    if the row were absent, that is bit for bit the plain autograd with the
+    row's incoming gradient zeroed, and within one bf16 rounding of the plain
+    autograd without the row."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, gout = _grad_inputs(g, 2, 2, 200, 200, 64, dev)
+    qseg = torch.zeros(2, 200, dtype=torch.int32, device=dev)
+    qseg[:, 150:] = 5  # no key carries segment 5
+    kseg = torch.zeros(2, 200, dtype=torch.int32, device=dev)
+    kw = dict(segment_ids=qseg, kv_segment_ids=kseg)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    dq, dk, dv = torch.autograd.grad(A.flash_attention(*leaves, **kw), leaves, gout)
+    assert not dq[:, :, 150:].any()
+    zeroed = gout.clone()
+    zeroed[:, :, 150:] = 0
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(A.mha_reference(*ref, **kw), ref, zeroed)
+    assert torch.equal(dq, want[0]) and torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    ref = [q[:, :, :150].clone().requires_grad_(), k.clone().requires_grad_(),
+           v.clone().requires_grad_()]
+    absent = torch.autograd.grad(
+        A.mha_reference(*ref, segment_ids=qseg[:, :150], kv_segment_ids=kseg), ref,
+        gout[:, :, :150])
+    for got, w in ((dq[:, :, :150], absent[0]), (dk, absent[1]), (dv, absent[2])):
+        mag = w.float().abs()
+        step = 2.0 ** -8 * (mag + 1e-3 * mag.max())
+        assert bool(((got.float() - w.float()).abs() <= step).all())
+
+
+def test_flash_attention_gradient_in_row_chunks(dev):
+    """Above its f32 score budget the recompute runs in chunks of query rows,
+    skipping chunks whose incoming gradient is zero (PTv3's padded clouds):
+    within rounding of the one-call recompute, and zero where skipped."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, gout = _grad_inputs(g, 2, 2, 700, 700, 16, dev)
+    _, seg, _ = _segments("patches_tail", 2, 700, 700, g, dev)
+    gout[:, :, 610:] = 0  # the -1 tail, zeroed downstream in PTv3
+    whole = A.flash_attention_bwd(q, k, v, seg, None, False, 0.25, gout)
+    chunks = A.flash_attention_bwd(q, k, v, seg, None, False, 0.25, gout,
+                                   max_bytes=2 * 2 * 700 * 4 * 128)
+    for a, w in zip(chunks, whole):
+        assert rel_l2(a, w) <= 1e-2
+    assert not chunks[0][:, :, 640:].any()
 
 
 @pytest.mark.parametrize("m,k,n,dtype", [
